@@ -73,10 +73,20 @@ class Objective:
 
 
 def sgd_train_with_cache(objective: Objective, params0: FlatParams,
-                         ds: Dataset, meta: HistoryMeta,
+                         ds: Dataset, meta: HistoryMeta, tier: str = "stacked",
+                         codec: str = "f32", spill_dir: Optional[str] = None,
+                         window: int = 0, spill_window: Optional[int] = None,
                          device=None) -> Tuple[FlatParams, TrainingHistory]:
-    """Train w_t by plain SGD (the paper's optimizer), caching (w_t, g_t)."""
-    return run_training(objective, params0, ds, meta, device=device)
+    """Train w_t by plain SGD (the paper's optimizer), caching (w_t, g_t).
+
+    ``tier="stacked"`` keeps the path on the device as f32.  ``"host"``
+    offloads it to host RAM and ``"disk"`` spills it under `spill_dir`
+    (``"auto"``: a fresh tempdir), each encoded by `codec` ("f32", "bf16",
+    "int8", "delta_bf16", "delta_int8") and recorded `window` steps at a
+    time (0: auto); `deltagrad_retrain` then streams it back in windows."""
+    return run_training(objective, params0, ds, meta, device=device,
+                        tier=tier, codec=codec, spill_dir=spill_dir,
+                        window=window, spill_window=spill_window)
 
 
 def baseline_retrain(objective: Objective, ds: Dataset, meta: HistoryMeta,

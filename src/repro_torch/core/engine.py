@@ -9,7 +9,9 @@ Mapping to Wu et al., ICML 2020 (and to the JAX package's `core.engine`):
             step's control flow costs no device sync.
   RECORD    `run_training`: Algorithm 1's original GD/SGD run, writing
             (w_t, g_t) into two preallocated (T, p) device buffers, the
-            `TrainingHistory`.
+            `TrainingHistory`; on the host and disk tiers one window of
+            steps at a time, each window copied to the host and encoded
+            there, so the device never holds more than a window.
   BASEL     `run_baseline`: exact retraining on the changed data.
   REPLAY    `run_replay`: explicit steps (t <= j0, every T0, and whenever
             the L-BFGS buffer is empty) are host-driven because they admit
@@ -21,7 +23,12 @@ Mapping to Wu et al., ICML 2020 (and to the JAX package's `core.engine`):
             rank_update), and the `kernels.fused_update` step.  With the
             guard on, the segment's flags are read once at its end; a
             segment with a failing step is re-run up to that step, which
-            then runs as an explicit step.
+            then runs as an explicit step.  The history is read through a
+            `core.store.HistoryStore`: resident, or streamed in windows (a
+            segment then also splits at window ends).  An ENCODED window
+            (a lossy codec in kernel mode) feeds the approx step through
+            `kernels.dequant_update`: dequant_sub gives v = w - w_t and
+            dequant_update the step, each decoding its row in registers.
 
 Parameters are one flat f32 buffer (`utils.tree.FlatParams`, the order of
 jax's ``ravel_pytree``), so each kernel runs once per step over all of p.
@@ -41,10 +48,13 @@ import torch
 
 from repro_torch.core.history import HistoryMeta, TrainingHistory
 from repro_torch.core.lbfgs import LbfgsBuffer
-from repro_torch.core.store import ResidentStore
+from repro_torch.core.store import (EncodedWindow, HistoryStore,
+                                   SegmentStreamer, auto_window)
 from repro_torch.data.dataset import Dataset
 from repro_torch.data.sampler import (ReplaySchedule, batch_indices_all,
                                       build_schedule)
+from repro_torch.kernels.dequant_update.ops import (dequant_sub,
+                                                    dequant_update)
 from repro_torch.kernels.fused_update.ops import update as fused_update
 from repro_torch.kernels.lbfgs.ops import MAX_M, lbfgs_hvp_fused
 from repro_torch.utils.tree import (FlatParams, tree_all_finite, tree_norm,
@@ -84,6 +94,13 @@ class DeltaGradConfig:
     curvature_eps: float = 0.0  # pair admission threshold (Alg. 4 guard)
     guard: bool = False  # enable non-convex fallback checks
     guard_norm_clip: float = 1e4  # fallback if ||Bv|| > clip * ||v||
+    # steps per device window when the history lives on an offload tier
+    # (served by core.store.SegmentStreamer); 0 -> auto
+    stream_window: int = 0
+    # streamed-window read path: "kernel" keeps windows ENCODED on the
+    # device and the approx steps decode per step, "fetch" decodes each
+    # window to f32 on arrival, "auto" -> kernel for every non-f32 codec
+    stream_decode: str = "auto"
 
     def __post_init__(self):
         if not 1 <= self.history_size <= MAX_M:
@@ -180,12 +197,23 @@ def _check_plain_sgd(meta: HistoryMeta) -> None:
 
 
 def run_training(objective, params0: FlatParams, ds: Dataset,
-                 meta: HistoryMeta, device=None
+                 meta: HistoryMeta, device=None, tier: str = "stacked",
+                 codec: str = "f32", spill_dir: Optional[str] = None,
+                 window: int = 0, spill_window: Optional[int] = None
                  ) -> Tuple[FlatParams, TrainingHistory]:
-    """Train w_t by plain SGD (the paper's optimizer), caching (w_t, g_t)
-    in two (T, p) f32 buffers on `device`."""
+    """Train w_t by plain SGD (the paper's optimizer), caching (w_t, g_t).
+
+    ``stacked``: in two (T, p) f32 buffers on `device`.  ``host`` /
+    ``disk``: through `codec`, one window of `window` steps (0: auto) at a
+    time; the disk tier writes one .npz per `spill_window` steps (None:
+    the window)."""
     dev = resolve_device(device)
     _check_plain_sgd(meta)
+    L = auto_window(meta.steps, window)
+    if spill_window is None:
+        spill_window = L if tier == "disk" else 0
+    history = TrainingHistory(meta, tier=tier, codec=codec,
+                              spill_dir=spill_dir, spill_window=spill_window)
     grad_fn = objective.make_grad_fn()
     B = min(meta.batch_size, meta.n)
     idx = torch.from_numpy(
@@ -193,15 +221,27 @@ def run_training(objective, params0: FlatParams, ds: Dataset,
     cols = ds.device_columns(dev)
     ones = torch.ones(B, device=dev)
     params = params0.to(dev)
-    W = torch.empty((meta.steps, params.numel), device=dev)
+    if tier == "stacked":
+        L = meta.steps
+    else:
+        history.set_layout(params.shapes, dev)
+    W = torch.empty((L, params.numel), device=dev)
     G = torch.empty_like(W)
-    for t in range(meta.steps):
-        g = grad_fn(params, _gather(cols, idx[t]), ones)
-        W[t] = params.flat
-        G[t] = g
-        params = params.with_flat(params.flat - meta.lr_at(t) * g)
-    history = TrainingHistory(meta)
-    history.set_stacked(W, G, final_params=params)
+    for a in range(0, meta.steps, L):
+        b = min(meta.steps, a + L)
+        for t in range(a, b):
+            g = grad_fn(params, _gather(cols, idx[t]), ones)
+            W[t - a] = params.flat
+            G[t - a] = g
+            params = params.with_flat(params.flat - meta.lr_at(t) * g)
+        if tier != "stacked":  # the window goes to the host, through the codec
+            host_w, host_g = W[:b - a].cpu().numpy(), G[:b - a].cpu().numpy()
+            for i in range(b - a):
+                history.append(host_w[i], host_g[i])
+    if tier == "stacked":
+        history.set_stacked(W, G, final_params=params)
+    else:
+        history.finalize(params)
     _sync(dev)
     return params, history
 
@@ -262,7 +302,7 @@ def run_baseline(objective, ds: Dataset, meta: HistoryMeta,
 class _Replay:
     """The state one `run_replay` call shares between its steps."""
 
-    def __init__(self, objective, store: ResidentStore, cols, sd, sched,
+    def __init__(self, objective, store: HistoryStore, cols, sd, sched,
                  plan, cfg: DeltaGradConfig, B: int, sign: int,
                  stats: RetrainStats):
         self.grad_fn = objective.make_grad_fn()
@@ -316,6 +356,7 @@ class _Replay:
         parameters and, with the guard on, one device flag per step (True
         on SKIP steps, which leave the parameters as they are)."""
         W, G, off = self.store.window(a, b)
+        encoded = isinstance(W, EncodedWindow)
         dW, dG = self.buffer.stacked()
         guard, clip = self.cfg.guard, float(self.cfg.guard_norm_clip)
         flags: List[torch.Tensor] = []
@@ -328,11 +369,20 @@ class _Replay:
                     flags.append(self._true)
                 continue
             g_changed = self.changed_grad(params, t)
-            v = params.flat - W[t - off]
-            bv = lbfgs_hvp_fused(dW, dG, v)
-            new = fused_update(params.flat, G[t - off], bv, g_changed,
-                               float(self.sched.lr[t]), self.B,
-                               float(self.sched.dB[t]), self.sign)
+            lr, dB = float(self.sched.lr[t]), float(self.sched.dB[t])
+            if encoded:  # decode w_t and g_t in the kernels' registers
+                q, scale, base = W.row(t - off)
+                v = dequant_sub(params.flat, q, scale, W.bounds, base)
+                bv = lbfgs_hvp_fused(dW, dG, v)
+                q, scale, base = G.row(t - off)
+                new = dequant_update(params.flat, q, bv, g_changed, lr,
+                                     self.B, dB, self.sign, scale, G.bounds,
+                                     base)
+            else:
+                v = params.flat - W[t - off]
+                bv = lbfgs_hvp_fused(dW, dG, v)
+                new = fused_update(params.flat, G[t - off], bv, g_changed,
+                                   lr, self.B, dB, self.sign)
             if guard:
                 flags.append(tree_all_finite(new)
                              & (tree_norm(bv) <= clip * tree_norm(v)))
@@ -344,22 +394,37 @@ def run_replay(objective, history: TrainingHistory, ds: Dataset,
                changed_idx: np.ndarray, cfg: DeltaGradConfig,
                mode: str = "delete", params0: Optional[FlatParams] = None,
                device=None) -> Tuple[FlatParams, RetrainStats]:
-    """Algorithm 1 (GD + SGD unified; GD == SGD with batch_size >= n) over
-    a device-resident history on `device` (None: the card)."""
+    """Algorithm 1 (GD + SGD unified; GD == SGD with batch_size >= n) on
+    `device` (None: the card), reading the history through the store its
+    tier calls for (`HistoryStore.create`: resident, or streamed in
+    windows of ``cfg.stream_window`` steps, read as ``cfg.stream_decode``
+    says)."""
     if mode not in ("delete", "add"):
         raise ValueError(f"mode must be 'delete' or 'add', got {mode!r}")
     dev = resolve_device(device)
     if history.device.type != dev.type:
         raise ValueError(f"history lives on {history.device}, replay asked "
                          f"for {dev}")
-    meta = history.meta
-    _check_plain_sgd(meta)
+    _check_plain_sgd(history.meta)
     changed_idx = np.asarray(changed_idx, dtype=np.int64)
+    store = HistoryStore.create(history, window=cfg.stream_window,
+                                decode=cfg.stream_decode)
+    try:
+        return _run_replay(objective, history, store, ds, changed_idx, cfg,
+                           mode, params0, dev)
+    finally:
+        store.close()
+
+
+def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
+                ds: Dataset, changed_idx: np.ndarray, cfg: DeltaGradConfig,
+                mode: str, params0: Optional[FlatParams], dev: torch.device
+                ) -> Tuple[FlatParams, RetrainStats]:
+    meta = history.meta
     r = len(changed_idx)
     B = min(meta.batch_size, meta.n)
     sign = 1 if mode == "delete" else -1
     r_pad = _next_pow2(max(1, min(r, B)))  # room for every changed row
-    store = ResidentStore(history)
     stats = RetrainStats()
 
     t_start = time.perf_counter()
@@ -427,4 +492,15 @@ def run_replay(objective, history: TrainingHistory, ds: Dataset,
                        buffer_rejected=rp.buffer.rejected, store=store.kind,
                        segments=max(1, len(seg_flags)), device=str(dev),
                        hbm_high_water=store.hbm_high_water())
+    if isinstance(store, SegmentStreamer):
+        stats.extra.update(
+            windows=store.windows_fetched, prefetch_depth=store.depth_used,
+            host_wait_s=store.host_wait_s,
+            host_stage_high=store.host_stage_high,
+            stream_decode=store.decode_mode,
+            encoded_bytes_high=store.enc_bytes_high,
+            compression_ratio=store.compression_ratio)
+    if history.tier == "disk":
+        stats.extra.update(spill_io_read_s=history.io_read_s,
+                           spill_io_write_s=history.io_write_s)
     return params, stats

@@ -1,18 +1,52 @@
 """The optimization-path cache (w_t, g_t) of the original training run.
 
-This slice keeps the path device-resident: two (T, p) f32 tensors, the
-rows in the flat parameter order of `utils.tree.FlatParams`, written by the
-recording loop and read by the replay.  The host and disk tiers and the
-compressing codecs of the JAX package come with a later slice.
+Rows are flat, in the parameter order of `utils.tree.FlatParams` (jax's
+``ravel_pytree`` order); ``bounds`` are the leaves' offsets in that row.
+
+Storage tiers:
+
+  ``stacked``  two (T, p) f32 tensors on the device, written by the
+               recording loop and read in place by the replay
+               (`core.store.ResidentStore`);
+  ``host``     entries offloaded to host RAM, encoded by a codec (the
+               paper's choice: the device is freed of the path), and
+               streamed to the replay in windows (`core.store.
+               SegmentStreamer`);
+  ``disk``     like ``host``, spilled as one ``.npz`` per ``spill_window``
+               steps under ``spill_dir`` (``"auto"``: a fresh tempdir,
+               removed when the process exits).
+
+Codecs (host and disk; ``stacked`` stores only f32), per param per step
+with both w_t and g_t counted:
+
+  ``f32``         8 B     the rows as they are
+  ``bf16``        4 B     round to nearest even
+  ``int8``        ~2 B    symmetric per-leaf absmax: q = round(x / s),
+                          s = max|x| / 127 (1.0 for an all-zero leaf)
+  ``delta_bf16``  ~4 B    bf16 / int8 residual x_t - base against an f32
+  ``delta_int8``  ~2.5 B  keyframe, the first entry of t's key window
+                          (t // 16); bases are immutable once taken
+
+Every stored row is an `Encoded` pair ``(q, scale)``: q (p,) f32, bf16 (as
+its int16 bit pattern: numpy has no bfloat16) or int8, scale (n_leaves,)
+f32 or None.  Decoding is `kernels.dequant_update.ref.dequant_ref`, the
+one expression ``q.float() * scale (+ base)`` that every read path uses.
+The codecs are the port's numpy copy of the JAX package's, bitwise: the
+int8 encode is its expression verbatim, applied leaf by leaf.
 """
 
 from __future__ import annotations
 
+import os
+import threading
+import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.kernels.dequant_update.ref import dequant_ref
 from repro_torch.utils.tree import FlatParams
 
 
@@ -35,22 +69,215 @@ class HistoryMeta:
         return lr
 
 
-class TrainingHistory:
-    """Per-step (w_t, g_t) cache, stacked on the device."""
+def leaf_bounds(shapes: Mapping[str, Tuple[int, ...]]) -> Tuple[int, ...]:
+    """(0, e_1, ..., p): the leaves' offsets in the flat row."""
+    out = [0]
+    for k in sorted(shapes):
+        out.append(out[-1] + int(np.prod(shapes[k], dtype=np.int64)))
+    return tuple(out)
 
-    def __init__(self, meta: HistoryMeta):
+
+# --------------------------------------------------------------------------
+# Codecs
+# --------------------------------------------------------------------------
+
+
+class Encoded(NamedTuple):
+    """One stored row: q (p,) and the per-leaf scale (n_leaves,) or None."""
+
+    q: np.ndarray
+    scale: Optional[np.ndarray] = None
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.nbytes + (0 if self.scale is None else self.scale.nbytes)
+
+
+def q_tensor(q: np.ndarray) -> torch.Tensor:
+    """A stored q as a torch tensor of its codec's type (bf16 bit patterns
+    are int16 in numpy and reinterpreted here, without a copy)."""
+    t = torch.from_numpy(q)
+    return t.view(torch.bfloat16) if t.dtype == torch.int16 else t
+
+
+class F32Codec:
+    name = "f32"
+
+    def encode(self, row: np.ndarray, bounds) -> Encoded:
+        return Encoded(np.array(row, dtype=np.float32))
+
+
+class BF16Codec:
+    name = "bf16"
+
+    def encode(self, row: np.ndarray, bounds) -> Encoded:
+        x = torch.from_numpy(np.ascontiguousarray(row, dtype=np.float32))
+        return Encoded(x.to(torch.bfloat16).view(torch.int16).numpy())
+
+
+class Int8Codec:
+    """Symmetric per-leaf absmax int8 quantization."""
+
+    name = "int8"
+
+    def encode(self, row: np.ndarray, bounds) -> Encoded:
+        row = np.asarray(row, dtype=np.float32)
+        q = np.empty(row.shape, np.int8)
+        scales = np.empty(len(bounds) - 1, np.float32)
+        for i, (a, b) in enumerate(zip(bounds, bounds[1:])):
+            # the JAX package's Int8Codec.encode, on one leaf
+            x = row[a:b]
+            scale = np.max(np.abs(x)) / 127.0 if x.size else 1.0
+            scale = scale if scale > 0 else 1.0
+            q[a:b] = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+            scales[i] = np.float32(scale)
+        return Encoded(q, scales)
+
+
+class DeltaCodec:
+    """Entry t stored as ``inner(x_t - base)`` against the f32 keyframe of
+    its key window (t // key_interval), which `TrainingHistory` takes once
+    and keeps: any entry decodes in O(1) from (residual, base)."""
+
+    inner_cls: type = Int8Codec
+    name = "delta_int8"
+    key_interval = 16
+
+    def __init__(self):
+        self.inner = self.inner_cls()
+
+    def encode(self, row, bounds):
+        raise ValueError(
+            f"codec {self.name!r} stores residuals against a per-key-window "
+            "keyframe base; use encode_delta, or go through TrainingHistory "
+            "which manages the bases")
+
+    def encode_delta(self, row: np.ndarray, base: np.ndarray,
+                     bounds) -> Encoded:
+        return self.inner.encode(np.asarray(row, dtype=np.float32) - base,
+                                 bounds)
+
+
+class DeltaInt8Codec(DeltaCodec):
+    inner_cls = Int8Codec
+    name = "delta_int8"
+
+
+class DeltaBF16Codec(DeltaCodec):
+    inner_cls = BF16Codec
+    name = "delta_bf16"
+
+
+CODECS = {"f32": F32Codec, "bf16": BF16Codec, "int8": Int8Codec,
+          "delta_int8": DeltaInt8Codec, "delta_bf16": DeltaBF16Codec}
+
+
+# --------------------------------------------------------------------------
+# History
+# --------------------------------------------------------------------------
+
+
+class TrainingHistory:
+    """Per-step (w_t, g_t) cache with tiered storage (see the module note).
+
+    ``device`` is where the recording ran and where `entry` decodes to."""
+
+    def __init__(self, meta: HistoryMeta, tier: str = "stacked",
+                 codec: str = "f32", spill_dir: Optional[str] = None,
+                 spill_window: int = 0, device=None):
+        if tier not in ("stacked", "host", "disk"):
+            raise ValueError(
+                f"unknown history tier {tier!r}; pick one of 'stacked' "
+                "(device-resident, fastest replay), 'host' (entries offloaded "
+                "to host RAM, streamed to the replay per window), or 'disk' "
+                "(.npz spill under spill_dir)")
+        if codec not in CODECS:
+            raise ValueError(f"unknown codec {codec!r}; pick one of "
+                             f"{sorted(CODECS)}")
+        if codec != "f32" and tier == "stacked":
+            raise ValueError(
+                f"codec={codec!r} has no effect on tier='stacked': stacked "
+                "storage keeps the exact rows the recording loop produced.  "
+                "Use tier='host' (or 'disk') to store the path "
+                f"{codec}-compressed (the SegmentStreamer still serves it to "
+                "the replay), or drop the codec")
+        if tier == "disk":
+            if spill_dir is None:
+                raise ValueError(
+                    "tier='disk' spills every history entry to .npz files "
+                    "and needs somewhere to put them: pass "
+                    "spill_dir=<directory> (created if missing), or "
+                    "spill_dir='auto' to opt into a fresh temporary "
+                    "directory (removed when the process exits)")
+            if spill_dir == "auto":
+                import atexit
+                import shutil
+                import tempfile
+                spill_dir = tempfile.mkdtemp(prefix="repro_torch_history_")
+                atexit.register(shutil.rmtree, spill_dir, ignore_errors=True)
+            os.makedirs(spill_dir, exist_ok=True)
         self.meta = meta
-        self.W: Optional[torch.Tensor] = None  # (T, p)
-        self.G: Optional[torch.Tensor] = None  # (T, p)
+        self.tier = tier
+        self.codec = CODECS[codec]()
+        self.spill_dir = spill_dir
+        self._device = None if device is None else torch.device(device)
         self.shapes: Dict[str, Tuple[int, ...]] = {}
         self.final_params: Optional[FlatParams] = None
+        # stacked tier: (T, p) f32 device tensors
+        self.W: Optional[torch.Tensor] = None
+        self.G: Optional[torch.Tensor] = None
+        # host tier: encoded (w_t, g_t) rows
+        self._enc: List[Tuple[Encoded, Encoded]] = []
+        # delta codecs: key window -> (base_w, base_g) f32 keyframes
+        self._bases: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        # disk tier: one .npz per spill_window steps (0: the stream window
+        # `core.store.auto_window` would pick)
+        if tier == "disk":
+            spill_window = int(spill_window) or min(meta.steps, 32)
+            if spill_window < 1:
+                raise ValueError(f"spill_window must be >= 1, got {spill_window}")
+        self.spill_window = spill_window if tier == "disk" else 0
+        self._n = 0  # entries appended (host/disk)
+        self._win_paths: List[str] = []
+        self._spill_buf: List[Tuple[Encoded, Encoded]] = []
+        self._spill_flushed = 0  # steps already on disk
+        self._win_cache: Optional[Tuple[int, List[Tuple[Encoded, Encoded]]]] = None
+        self._disk_lock = threading.Lock()  # the streamer reads from threads
+        self.io_read_s = 0.0  # cumulative spill IO wall time
+        self.io_write_s = 0.0
 
     def __len__(self) -> int:
-        return 0 if self.W is None else self.W.shape[0]
+        if self.tier == "stacked":
+            return 0 if self.W is None else self.W.shape[0]
+        return self._n
+
+    @property
+    def device(self) -> torch.device:
+        if self.tier == "stacked" and self.W is not None:
+            return self.W.device
+        if self._device is None:
+            raise ValueError("the history has no device yet")
+        return self._device
+
+    @property
+    def bounds(self) -> Tuple[int, ...]:
+        return leaf_bounds(self.shapes)
+
+    @property
+    def is_delta(self) -> bool:
+        return isinstance(self.codec, DeltaCodec)
+
+    @property
+    def key_interval(self) -> int:
+        return self.codec.key_interval if self.is_delta else 0
+
+    # -- write path ------------------------------------------------------------
 
     def set_stacked(self, W: torch.Tensor, G: torch.Tensor,
                     final_params: FlatParams) -> None:
         """Adopt (W, G), the recording loop's (T, p) buffers, as the cache."""
+        if self.tier != "stacked":
+            raise ValueError(f"set_stacked on a {self.tier!r}-tier history")
         if W.shape != G.shape or W.dim() != 2:
             raise ValueError(f"W {tuple(W.shape)} and G {tuple(G.shape)} "
                              "must be equal (T, p)")
@@ -58,23 +285,208 @@ class TrainingHistory:
         self.shapes = dict(final_params.shapes)
         self.final_params = final_params
 
-    def stacked_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.W is None:
-            raise ValueError("stacked_view() on an empty history")
-        return self.W, self.G
+    def set_layout(self, shapes: Mapping[str, Tuple[int, ...]],
+                   device) -> None:
+        """The parameter layout and device of an offload-tier history,
+        before its first `append`."""
+        self.shapes = {k: tuple(shapes[k]) for k in sorted(shapes)}
+        self._device = torch.device(device)
+
+    def base_entry(self, kwid: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(base_w, base_g) f32 keyframes of key window `kwid`."""
+        return self._bases[kwid]
+
+    def _base_for(self, t: int, w=None, g=None) -> Tuple[np.ndarray, np.ndarray]:
+        kwid = t // self.codec.key_interval
+        if kwid not in self._bases:
+            if w is None:
+                raise KeyError(f"no keyframe base for key window {kwid} "
+                               f"(entry {t})")
+            self._bases[kwid] = (np.array(w, dtype=np.float32),
+                                 np.array(g, dtype=np.float32))
+        return self._bases[kwid]
+
+    def append(self, w: np.ndarray, g: np.ndarray) -> None:
+        """Encode and store entry t = len(self): host rows (p,) of w_t, g_t."""
+        if self.tier == "stacked":
+            raise ValueError("append on a stacked history: the recording "
+                             "loop hands it whole to set_stacked")
+        if not self.shapes:
+            raise ValueError("set_layout before the first append")
+        t, bounds = self._n, self.bounds
+        if self.is_delta:
+            bw, bg = self._base_for(t, w, g)
+            pair = (self.codec.encode_delta(w, bw, bounds),
+                    self.codec.encode_delta(g, bg, bounds))
+        else:
+            pair = (self.codec.encode(w, bounds), self.codec.encode(g, bounds))
+        self._n += 1
+        if self.tier == "host":
+            self._enc.append(pair)
+        else:
+            self._spill_buf.append(pair)
+            self._flush_spill()  # no-op until a window is complete
+
+    def finalize(self, final_params: FlatParams) -> None:
+        self.final_params = final_params
+        if self.tier == "disk":
+            self._flush_spill(everything=True)
+
+    # -- windowed disk spill ---------------------------------------------------
+
+    def _win_path(self, wid: int) -> str:
+        return os.path.join(self.spill_dir, f"win_{wid:07d}.npz")
+
+    def _write_win(self, wid: int, entries: List[Tuple[Encoded, Encoded]]) -> None:
+        """One member per quantity stacked over the window's steps."""
+        arrays = {"t0": wid * self.spill_window, "steps": len(entries)}
+        for i, name in enumerate(("w", "g")):
+            arrays[f"{name}_q"] = np.stack([e[i].q for e in entries])
+            if entries[0][i].scale is not None:
+                arrays[f"{name}_scale"] = np.stack([e[i].scale for e in entries])
+        t0 = time.perf_counter()
+        np.savez(self._win_path(wid), **arrays)
+        self.io_write_s += time.perf_counter() - t0
+
+    def _flush_spill(self, everything: bool = False) -> None:
+        """Write buffered appends as window files: complete windows only,
+        unless `everything` (finalize) also flushes the partial tail."""
+        W = self.spill_window
+        while self._spill_buf:
+            wid, off = divmod(self._spill_flushed, W)
+            take = min(W - off, len(self._spill_buf))
+            if not everything and off + take < W:
+                return  # keep the partial tail buffered
+            with self._disk_lock:
+                entries = (list(self._load_win(wid)) if off else []) \
+                    + self._spill_buf[:take]
+                self._write_win(wid, entries)
+                if wid >= len(self._win_paths):
+                    self._win_paths.append(self._win_path(wid))
+                self._win_cache = (wid, entries)
+            self._spill_flushed += take
+            self._spill_buf = self._spill_buf[take:]
+
+    def _load_win(self, wid: int) -> List[Tuple[Encoded, Encoded]]:
+        """Window `wid`'s entries (call with `_disk_lock` held)."""
+        if self._win_cache is not None and self._win_cache[0] == wid:
+            return self._win_cache[1]
+        t0 = time.perf_counter()
+        with np.load(self._win_paths[wid]) as data:
+            cols = []
+            for name in ("w", "g"):
+                q = data[f"{name}_q"]
+                s = data[f"{name}_scale"] if f"{name}_scale" in data else None
+                cols.append([Encoded(q[e], None if s is None else s[e])
+                             for e in range(int(data["steps"]))])
+        self.io_read_s += time.perf_counter() - t0
+        entries = list(zip(*cols))
+        self._win_cache = (wid, entries)
+        return entries
+
+    # -- read path -------------------------------------------------------------
+
+    def encoded_entry(self, t: int) -> Tuple[Encoded, Encoded]:
+        """(w_t, g_t) in stored form: no decode, no device copy (the
+        streamer's read path; offload tiers only)."""
+        if self.tier == "stacked":
+            raise ValueError("encoded_entry on a stacked history")
+        if not 0 <= t < self._n:
+            raise IndexError(f"history entry {t} of {self._n}")
+        if self.tier == "host":
+            return self._enc[t]
+        if t >= self._spill_flushed:  # still buffered, not yet on disk
+            return self._spill_buf[t - self._spill_flushed]
+        wid, off = divmod(t, self.spill_window)
+        with self._disk_lock:
+            return self._load_win(wid)[off]
 
     def entry(self, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(w_t, g_t) as flat row views."""
-        if not 0 <= t < len(self):
-            raise IndexError(f"history entry {t} of {len(self)}")
-        return self.W[t], self.G[t]
+        """(w_t, g_t) as flat f32 rows on the history's device."""
+        if self.tier == "stacked":
+            if not 0 <= t < len(self):
+                raise IndexError(f"history entry {t} of {len(self)}")
+            return self.W[t], self.G[t]
+        bases = self._base_for(t) if self.is_delta else (None, None)
+        return tuple(self._decode(e, b)
+                     for e, b in zip(self.encoded_entry(t), bases))
+
+    def _decode(self, e: Encoded, base: Optional[np.ndarray]) -> torch.Tensor:
+        dev = self.device
+        q = q_tensor(e.q).to(dev, copy=True)  # never a view of the store
+        scale = None if e.scale is None else torch.from_numpy(e.scale).to(dev)
+        b = None if base is None else torch.from_numpy(base).to(dev)
+        return dequant_ref(q, scale, self.bounds, b)
+
+    def stacked_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.tier != "stacked" or self.W is None:
+            raise ValueError("stacked_view() needs a filled stacked history")
+        return self.W, self.G
 
     def params_at(self, t: int) -> FlatParams:
         return FlatParams(self.entry(t)[0].clone(), self.shapes)
 
-    @property
-    def device(self) -> torch.device:
-        return self.W.device
+    # -- sizes -----------------------------------------------------------------
 
     def nbytes(self) -> int:
-        return 0 if self.W is None else 2 * self.W.numel() * self.W.element_size()
+        """Bytes the cache holds in memory: device bytes for ``stacked``,
+        host RAM (encoded rows and keyframes) for the offload tiers."""
+        if self.tier == "stacked":
+            return 0 if self.W is None else 2 * self.W.numel() * self.W.element_size()
+        rows = self._enc if self.tier == "host" else self._spill_buf
+        total = sum(w.nbytes + g.nbytes for w, g in rows)
+        return total + sum(w.nbytes + g.nbytes for w, g in self._bases.values())
+
+    def disk_nbytes(self) -> int:
+        """Bytes of the disk spill (0 for other tiers)."""
+        return sum(os.path.getsize(p) for p in self._win_paths
+                   if os.path.exists(p))
+
+    # -- carrying a history across ---------------------------------------------
+
+    @classmethod
+    def from_state_dict(cls, state: Mapping[str, Any], meta: HistoryMeta,
+                        device=None) -> "TrainingHistory":
+        """A host-tier history from the numpy layout of the JAX package's
+        ``TrainingHistory.state_dict()`` of a host-tier history: per-entry
+        trees of
+        encoded leaves (``{"q", "scale"}`` dicts for int8, bf16 or f32
+        arrays otherwise), ``bases`` {kwid: (w_tree, g_tree)} and
+        ``final_params``.  The codes are taken as they are, not re-encoded,
+        so both packages replay the same bits.  ``device``: where `entry`
+        decodes to (None: the card)."""
+        if state["tier"] != "host":
+            raise ValueError(
+                f"from_state_dict takes host-tier states, got a "
+                f"{state['tier']!r}-tier one (its entries live elsewhere)")
+        dev = torch.device("cuda" if device is None else device)
+        final = FlatParams.from_tensors(
+            {k: np.array(v) for k, v in state["final_params"].items()},
+            device=dev)
+        h = cls(meta, tier="host", codec=state["codec"], device=dev)
+        h.set_layout(final.shapes, dev)
+        names = sorted(final.shapes)
+
+        def flat(tree) -> Encoded:
+            leaves = [tree[k] for k in names]
+            if isinstance(leaves[0], dict):  # int8: {"q", "scale"} per leaf
+                return Encoded(
+                    np.concatenate([np.asarray(x["q"]).reshape(-1)
+                                    for x in leaves]),
+                    np.asarray([x["scale"] for x in leaves], np.float32))
+            arrs = [np.asarray(x).reshape(-1) for x in leaves]
+            if arrs[0].dtype.name == "bfloat16":
+                return Encoded(np.concatenate([a.view(np.int16) for a in arrs]))
+            return Encoded(np.concatenate(arrs).astype(np.float32, copy=False))
+
+        def flat_f32(tree) -> np.ndarray:
+            return np.concatenate([np.asarray(tree[k], np.float32).reshape(-1)
+                                   for k in names])
+
+        h._enc = [(flat(p), flat(g))
+                  for p, g in zip(state["params"], state["grads"])]
+        h._n = len(h._enc)
+        h._bases = {int(k): (flat_f32(w), flat_f32(g))
+                    for k, (w, g) in state.get("bases", {}).items()}
+        h.final_params = final
+        return h

@@ -24,14 +24,13 @@ fused_update_kernel(const T* __restrict__ w, const T* __restrict__ g,
                     const T* __restrict__ bv, const T* __restrict__ gc,
                     T* __restrict__ out, int64_t p, float lr, float n,
                     float dB, float sign) {
-  const float denom = fmaxf(n - sign * dB, 1.0f);
-  const float sdb = sign * dB;
+  const repro::UpdateCoef c = repro::update_coef(lr, n, dB, sign);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < p;
        j += stride) {
-    const float num = n * (repro::to_f32(g[j]) + repro::to_f32(bv[j])) -
-                      sdb * repro::to_f32(gc[j]);
-    out[j] = repro::from_f32<T>(repro::to_f32(w[j]) - lr * num / denom);
+    out[j] = repro::from_f32<T>(repro::deltagrad_update(
+        repro::to_f32(w[j]), repro::to_f32(g[j]), repro::to_f32(bv[j]),
+        repro::to_f32(gc[j]), c));
   }
 }
 

@@ -124,7 +124,8 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DType
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
+               torch.int8: 2}  # csrc/common.cuh DType
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -7,7 +7,12 @@ kernels, bf16 2e-2.  multidot's sums are held per entry against
 sum_k |a_k b_k|, the scale a dot product's rounding grows with: in f32 the
 port within 1e-6 of an f64 sum, and within 2e-6 of each JAX output, 1e-6
 for each side's rounding (XLA's CPU dot alone is 1.15e-6 from f64 at
-p = 4097, the port's plain version 1.3e-7).  The CUDA
+p = 4097, the port's plain version 1.3e-7).  The dequant
+kernels take one launch over all leaves with a scale per leaf; the JAX
+ones run per leaf, so each leaf's slice is held against its own JAX call:
+dequant_sub bitwise against the eager JAX ``ref.py`` (one rounded
+multiply, one rounded add, one rounded subtract), and both within 1e-6
+relative of the Pallas kernels in interpret mode.  The CUDA
 kernels themselves are held against the plain versions on the card in
 ``test_torch_cuda.py``.
 """
@@ -17,6 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.dequant_update.ops import dequant_sub as j_dequant_sub
+from repro.kernels.dequant_update.ops import dequant_update as j_dequant_update
+from repro.kernels.dequant_update.ref import dequant_sub_ref as j_dequant_sub_ref
+from repro.kernels.dequant_update.ref import (
+    dequant_update_ref as j_dequant_update_ref)
 from repro.kernels.fused_update.ops import update as j_update
 from repro.kernels.fused_update.ref import deltagrad_update_ref as j_update_ref
 from repro.kernels.lbfgs.ops import multidot as j_multidot
@@ -24,6 +34,10 @@ from repro.kernels.lbfgs.ops import rank_update as j_rank_update
 from repro.kernels.lbfgs.ref import multidot_ref as j_multidot_ref
 from repro.kernels.lbfgs.ref import rank_update_ref as j_rank_update_ref
 
+from repro_torch.kernels.dequant_update.ops import dequant_sub, dequant_update
+from repro_torch.kernels.dequant_update.ref import (dequant_ref,
+                                                    dequant_sub_ref,
+                                                    dequant_update_ref)
 from repro_torch.kernels.fused_update.ops import update
 from repro_torch.kernels.fused_update.ref import deltagrad_update_ref
 from repro_torch.kernels.lbfgs.ops import multidot, rank_update
@@ -153,3 +167,126 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     if bad in ("f64", "meta"):
         with pytest.raises(ValueError):
             update(v, v, v, v, 0.1, 1.0, 0.0, 1.0)
+
+
+# -- dequant_update / dequant_sub ---------------------------------------------------
+
+# ragged leaf splits, the MLP's sorted (b1, b2, w1, w2) one included
+LEAVES = {"mlp": (32, 4, 640, 128), "ragged": (5, 1000, 3), "one": (777,)}
+
+
+def _encoded(leaves, qdtype, with_base, seed):
+    """Per-leaf numpy operands: w, bv, g_changed, base (f32), q, scale."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, n in enumerate(leaves):
+        w, bv, gc, base = (rng.normal(size=n).astype(np.float32) for _ in range(4))
+        if qdtype == "int8":
+            q = rng.integers(-127, 128, size=n).astype(np.int8)
+            scale = np.float32(rng.uniform(1e-3, 1e-1))
+        else:  # bf16 residuals carry no scale
+            q = (0.01 * rng.normal(size=n)).astype(np.float32)
+            scale = None
+        out.append(dict(w=w, bv=bv, gc=gc, q=q, scale=scale,
+                        base=base if with_base else None))
+    return out
+
+
+def _port_operands(parts, qdtype):
+    cat = lambda k: torch.from_numpy(np.concatenate([x[k] for x in parts]))
+    q = cat("q") if qdtype == "int8" else cat("q").to(torch.bfloat16)
+    scale = None if parts[0]["scale"] is None else torch.tensor(
+        [x["scale"] for x in parts])
+    bounds = tuple(np.cumsum([0] + [len(x["w"]) for x in parts]))
+    base = None if parts[0]["base"] is None else cat("base")
+    return cat("w"), q, cat("bv"), cat("gc"), scale, bounds, base
+
+
+def _jax_leaf(x, qdtype):
+    q = jnp.asarray(x["q"]) if qdtype == "int8" \
+        else jnp.asarray(x["q"], jnp.bfloat16)
+    scale = jnp.float32(1.0) if x["scale"] is None else jnp.float32(x["scale"])
+    base = None if x["base"] is None else jnp.asarray(x["base"])
+    return jnp.asarray(x["w"]), q, jnp.asarray(x["bv"]), jnp.asarray(x["gc"]), \
+        scale, base
+
+
+@pytest.mark.parametrize("with_base", [False, True], ids=["plain", "base"])
+@pytest.mark.parametrize("qdtype", ["int8", "bf16"])
+@pytest.mark.parametrize("leaves", sorted(LEAVES))
+def test_dequant_sub_matches_jax(leaves, qdtype, with_base):
+    parts = _encoded(LEAVES[leaves], qdtype, with_base, seed=len(leaves))
+    w, q, _, _, scale, bounds, base = _port_operands(parts, qdtype)
+    got = dequant_sub(w, q, scale, bounds, base)
+    assert got.dtype == torch.float32 and got.shape == w.shape
+    assert torch.equal(got, dequant_sub_ref(w, q, scale, bounds, base))
+    assert torch.equal(got, w - dequant_ref(q, scale, bounds, base))
+    for i, x in enumerate(parts):
+        jw, jq, _, _, js, jb = _jax_leaf(x, qdtype)
+        mine = got[bounds[i]:bounds[i + 1]].numpy()
+        assert np.array_equal(mine, np.asarray(j_dequant_sub_ref(jw, jq, js, jb)))
+        pallas = np.asarray(j_dequant_sub(jw, jq, js, jb, interpret=True))
+        np.testing.assert_allclose(mine, pallas, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_base", [False, True], ids=["plain", "base"])
+@pytest.mark.parametrize("qdtype", ["int8", "bf16"])
+@pytest.mark.parametrize("leaves", sorted(LEAVES))
+@pytest.mark.parametrize("sign,dB", [(1, 3.0), (-1, 5.0)])
+def test_dequant_update_matches_jax(leaves, qdtype, with_base, sign, dB):
+    parts = _encoded(LEAVES[leaves], qdtype, with_base, seed=7 + len(leaves))
+    w, q, bv, gc, scale, bounds, base = _port_operands(parts, qdtype)
+    lr, n = 0.1, 40.0
+    got = dequant_update(w, q, bv, gc, lr, n, dB, sign, scale, bounds, base)
+    assert torch.equal(got, dequant_update_ref(w, q, bv, gc, lr, n, dB, sign,
+                                               scale, bounds, base))
+    assert torch.equal(got, update(w, dequant_ref(q, scale, bounds, base), bv,
+                                   gc, lr, n, dB, sign))
+    for i, x in enumerate(parts):
+        jw, jq, jbv, jgc, js, jb = _jax_leaf(x, qdtype)
+        mine = got[bounds[i]:bounds[i + 1]].numpy()
+        for ref in (j_dequant_update_ref(jw, jq, jbv, jgc, lr, n, dB, sign, js, jb),
+                    j_dequant_update(jw, jq, jbv, jgc, lr, n, dB, sign, js, jb,
+                                     interpret=True)):
+            np.testing.assert_allclose(mine, np.asarray(ref), rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_dequant_wrappers_on_cpu_count_no_launch():
+    parts = _encoded(LEAVES["ragged"], "int8", True, seed=0)
+    w, q, bv, gc, scale, bounds, base = _port_operands(parts, "int8")
+    before = (dequant_update.launches, dequant_sub.launches)
+    dequant_sub(w, q, scale, bounds, base)
+    dequant_update(w, q, bv, gc, 0.1, 10.0, 1.0, 1.0, scale, bounds, base)
+    assert (dequant_update.launches, dequant_sub.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["q-f32", "w-bf16", "q-short", "scale-count",
+                                 "bounds-end", "bounds-order", "base-bf16",
+                                 "meta"])
+def test_dequant_wrappers_reject_what_the_kernels_do_not_take(bad):
+    w, bv, gc, base = (torch.zeros(64) for _ in range(4))
+    q = torch.zeros(64, dtype=torch.int8)
+    scale, bounds = torch.ones(2), (0, 10, 64)
+    if bad == "q-f32":
+        q = torch.zeros(64)
+    elif bad == "w-bf16":
+        w, bv, gc, base = (x.to(torch.bfloat16) for x in (w, bv, gc, base))
+    elif bad == "q-short":
+        q = torch.zeros(63, dtype=torch.int8)
+    elif bad == "scale-count":
+        scale = torch.ones(3)
+    elif bad == "bounds-end":
+        bounds = (0, 10, 63)
+    elif bad == "bounds-order":
+        bounds = (0, 50, 40, 64)
+        scale = torch.ones(3)
+    elif bad == "base-bf16":
+        base = base.to(torch.bfloat16)
+    else:  # no kernel and no plain version for this device
+        w, bv, gc, base, q, scale = (x.to("meta")
+                                     for x in (w, bv, gc, base, q, scale))
+    with pytest.raises(ValueError):
+        dequant_sub(w, q, scale, bounds, base)
+    with pytest.raises(ValueError):
+        dequant_update(w, q, bv, gc, 0.1, 10.0, 1.0, 1.0, scale, bounds, base)
