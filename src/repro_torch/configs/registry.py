@@ -1,0 +1,24 @@
+"""Architecture registry, filled by the per-architecture config modules."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {}
+
+_ARCH_MODULES = ["internlm2_1_8b"]
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    ARCHS[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    if not ARCHS:
+        for mod in _ARCH_MODULES:
+            importlib.import_module(f"repro_torch.configs.{mod}")
+    return ARCHS[name]

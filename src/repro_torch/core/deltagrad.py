@@ -26,7 +26,8 @@ from repro_torch.core.engine import (DeltaGradConfig, RetrainStats,
                                      run_baseline, run_replay, run_training)
 from repro_torch.core.history import HistoryMeta, TrainingHistory
 from repro_torch.data.dataset import Dataset
-from repro_torch.utils.tree import FlatParams
+from repro_torch.models.attention_config import check_impl, use_attention_impl
+from repro_torch.utils.tree import FlatParams, key_order
 
 __all__ = ["Objective", "DeltaGradConfig", "RetrainStats", "HistoryMeta",
            "TrainingHistory", "sgd_train_with_cache", "baseline_retrain",
@@ -52,7 +53,7 @@ class Objective:
         denom = torch.clamp(weights.sum(), min=1.0)
         data_term = (losses * weights).sum() / denom
         if self.l2:
-            sq = sum(torch.sum(params[k] * params[k]) for k in sorted(params))
+            sq = sum(torch.sum(params[k] * params[k]) for k in key_order(params))
             return data_term + 0.5 * self.l2 * sq
         return data_term
 
@@ -61,7 +62,7 @@ class Objective:
         the weighted rows, in the flat order of `params` (autograd)."""
 
         def grad_fn(params: FlatParams, batch, weights) -> torch.Tensor:
-            names = sorted(params)
+            names = key_order(params)
             with torch.enable_grad():
                 leaves = {k: params[k].detach().requires_grad_(True)
                           for k in names}
@@ -70,6 +71,36 @@ class Objective:
             return torch.cat([g.reshape(-1) for g in grads])
 
         return grad_fn
+
+    @classmethod
+    def from_model(cls, model, *, remat: bool = False,
+                   loss_chunk: Optional[int] = None, l2: float = 0.0,
+                   attn_impl: Optional[str] = None,
+                   dtype: Optional[torch.dtype] = None) -> "Objective":
+        """An Objective over a `models.registry.Model`'s LM loss.
+
+        Row i's loss is the model's mean masked token loss on document i
+        alone.  The reference builds that with ``jax.vmap`` over batch-1
+        slices; here one batched forward gives every row's value
+        (`Model.per_row_loss_fn`), since rows never mix in the model.
+        ``remat`` and ``loss_chunk`` go to the loss (per-layer activation
+        checkpointing, the logits' chunk); ``dtype`` is the compute dtype
+        (None: the model's bf16).  ``attn_impl`` pins
+        `models.attention_config` for every call of this objective:
+        ``"flash"`` puts the flash kernel on every forward pass."""
+        if attn_impl is not None:
+            check_impl(attn_impl)
+        kw: Dict[str, object] = {"remat": remat}
+        if loss_chunk is not None:
+            kw["loss_chunk"] = loss_chunk
+        if dtype is not None:
+            kw["dtype"] = dtype
+
+        def per_example_loss(params, batch):
+            with use_attention_impl(attn_impl):
+                return model.per_row_loss_fn(params, batch, **kw)
+
+        return cls(per_example_loss=per_example_loss, l2=l2)
 
 
 def sgd_train_with_cache(objective: Objective, params0: FlatParams,

@@ -433,7 +433,9 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
     plan = build_plan(cfg, sched)
     rp = _Replay(objective, store, ds.device_columns(dev), to_device(sched, dev),
                  sched, plan, cfg, B, sign, stats)
-    params = (params0 if params0 is not None else history.params_at(0)).to(dev)
+    if params0 is None:  # w_0, read through the store like every row
+        params0 = FlatParams(store.entry(0)[0].clone(), history.shapes)
+    params = params0.to(dev)
     T = meta.steps
     seg_flags: List[Tuple[int, int, Optional[np.ndarray]]] = []
 

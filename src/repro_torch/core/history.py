@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dequant_update.ref import dequant_ref
-from repro_torch.utils.tree import FlatParams
+from repro_torch.utils.tree import FlatParams, flatten_nested, key_order
 
 
 @dataclass
@@ -72,7 +72,7 @@ class HistoryMeta:
 def leaf_bounds(shapes: Mapping[str, Tuple[int, ...]]) -> Tuple[int, ...]:
     """(0, e_1, ..., p): the leaves' offsets in the flat row."""
     out = [0]
-    for k in sorted(shapes):
+    for k in key_order(shapes):
         out.append(out[-1] + int(np.prod(shapes[k], dtype=np.int64)))
     return tuple(out)
 
@@ -289,7 +289,7 @@ class TrainingHistory:
                    device) -> None:
         """The parameter layout and device of an offload-tier history,
         before its first `append`."""
-        self.shapes = {k: tuple(shapes[k]) for k in sorted(shapes)}
+        self.shapes = {k: tuple(shapes[k]) for k in key_order(shapes)}
         self._device = torch.device(device)
 
     def base_entry(self, kwid: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -423,9 +423,6 @@ class TrainingHistory:
             raise ValueError("stacked_view() needs a filled stacked history")
         return self.W, self.G
 
-    def params_at(self, t: int) -> FlatParams:
-        return FlatParams(self.entry(t)[0].clone(), self.shapes)
-
     # -- sizes -----------------------------------------------------------------
 
     def nbytes(self) -> int:
@@ -449,11 +446,10 @@ class TrainingHistory:
                         device=None) -> "TrainingHistory":
         """A host-tier history from the numpy layout of the JAX package's
         ``TrainingHistory.state_dict()`` of a host-tier history: per-entry
-        trees of
-        encoded leaves (``{"q", "scale"}`` dicts for int8, bf16 or f32
-        arrays otherwise), ``bases`` {kwid: (w_tree, g_tree)} and
-        ``final_params``.  The codes are taken as they are, not re-encoded,
-        so both packages replay the same bits.  ``device``: where `entry`
+        (nested) trees of encoded leaves (``{"q", "scale"}`` dicts for
+        int8, bf16 or f32 arrays otherwise), ``bases`` {kwid: (w_tree,
+        g_tree)} and ``final_params``.  The codes are taken as they are,
+        not re-encoded, so both packages replay the same bits.  ``device``: where `entry`
         decodes to (None: the card)."""
         if state["tier"] != "host":
             raise ValueError(
@@ -461,14 +457,21 @@ class TrainingHistory:
                 f"{state['tier']!r}-tier one (its entries live elsewhere)")
         dev = torch.device("cuda" if device is None else device)
         final = FlatParams.from_tensors(
-            {k: np.array(v) for k, v in state["final_params"].items()},
-            device=dev)
+            {k: np.array(v) for k, v in
+             flatten_nested(state["final_params"]).items()}, device=dev)
         h = cls(meta, tier="host", codec=state["codec"], device=dev)
         h.set_layout(final.shapes, dev)
-        names = sorted(final.shapes)
+        names = list(final.shapes)  # key paths, in the flat order
+
+        def at(tree, name):
+            """The leaf at key path `name` of a (nested) entry tree; an
+            int8 leaf is itself a {"q", "scale"} dict."""
+            for part in name.split("/"):
+                tree = tree[part]
+            return tree
 
         def flat(tree) -> Encoded:
-            leaves = [tree[k] for k in names]
+            leaves = [at(tree, k) for k in names]
             if isinstance(leaves[0], dict):  # int8: {"q", "scale"} per leaf
                 return Encoded(
                     np.concatenate([np.asarray(x["q"]).reshape(-1)
@@ -480,7 +483,7 @@ class TrainingHistory:
             return Encoded(np.concatenate(arrs).astype(np.float32, copy=False))
 
         def flat_f32(tree) -> np.ndarray:
-            return np.concatenate([np.asarray(tree[k], np.float32).reshape(-1)
+            return np.concatenate([np.asarray(at(tree, k), np.float32).reshape(-1)
                                    for k in names])
 
         h._enc = [(flat(p), flat(g))

@@ -92,9 +92,14 @@ class LbfgsBuffer:
         return True
 
     def stacked(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(dW, dG), each (len, p) and contiguous; cached between admissions."""
+        """(dW, dG), each (len, p) and contiguous; cached between admissions.
+
+        The ring then holds the stacked rows' views, not its own copies, so
+        the pairs take 2 m p floats, not twice that (at an LM's p the
+        difference is gigabytes)."""
         if not self._dws:
             raise ValueError("LbfgsBuffer.stacked called with no admitted pairs")
         if self._stacked is None:
             self._stacked = (torch.stack(self._dws), torch.stack(self._dgs))
+            self._dws, self._dgs = (list(x.unbind(0)) for x in self._stacked)
         return self._stacked

@@ -15,8 +15,10 @@ encoded rows into pinned host buffers and copy them to the device on a
 side CUDA stream; the compute stream waits on the copy's event before it
 reads the window, so the copy of window s+1 runs while the replay computes
 on window s.  The prefetch depth grows past 1 when staging is measurably
-slower than the replay of a window.  Windows before the current one are
-evicted, so the device holds about two windows of the path, not all of it.
+slower than the replay of a window, within a budget of pinned host bytes.
+Windows before the current one are evicted, so the device holds about two
+windows of the path, not all of it.  Explicit steps read their rows from
+the windows too (`entry`), so no row of the path is copied on its own.
 
 Read paths (``decode``): ``"fetch"`` decodes each window to f32 on
 arrival; ``"kernel"`` keeps it ENCODED on the device (`EncodedWindow`)
@@ -42,6 +44,9 @@ from repro_torch.core.history import TrainingHistory
 from repro_torch.kernels.dequant_update.ref import dequant_ref
 
 DECODE_MODES = ("auto", "kernel", "fetch")
+# host bytes that windows staged ahead may pin at once: at an LM's p one
+# window is gigabytes, and pinned memory is host RAM the history needs too
+STAGE_BUDGET = 16 << 30
 
 
 def auto_window(steps: int, window: int = 0) -> int:
@@ -406,12 +411,15 @@ class SegmentStreamer(HistoryStore):
 
     def _choose_depth(self) -> int:
         """1 while staging keeps up with the replay; ceil(stage / replay)
-        windows once staging is measurably (over 1 ms) slower."""
+        windows once staging is measurably (over 1 ms) slower, but no more
+        than `STAGE_BUDGET` bytes of staged windows."""
         if (self._scan_ema <= 0.0 or self._stack_ema <= 1e-3
                 or self._stack_ema <= self._scan_ema):
             return 1
-        return max(1, min(self.max_prefetch,
-                          int(np.ceil(self._stack_ema / self._scan_ema))))
+        cap = self.max_prefetch
+        if self.host_stage_high:
+            cap = min(cap, STAGE_BUDGET // self.host_stage_high)
+        return max(1, min(cap, int(np.ceil(self._stack_ema / self._scan_ema))))
 
     def window(self, a: int, b: int) -> Tuple[Window, Window, int]:
         now = time.perf_counter()
@@ -425,24 +433,34 @@ class SegmentStreamer(HistoryStore):
         if b > self._window_bounds(wid)[1]:
             raise ValueError(f"steps [{a}, {b}) cross the window of "
                              f"{self.window_len} steps at {wid}")
+        W, G = self._acquire(wid)
+        self._last_return_ts = time.perf_counter()
+        return W, G, wid * self.window_len
+
+    def _acquire(self, wid: int) -> Tuple[Window, Window]:
+        """Window `wid` on the device: evict the ones before it, fetch it,
+        and start staging the next ones."""
         self._evict_before(wid)
         W, G = self._fetch(wid)
         depth = self._choose_depth()
         self.depth_used = max(self.depth_used, depth)
         for ahead in range(1, depth + 1):
             self._prefetch(wid + ahead)
-        self._last_return_ts = time.perf_counter()
-        return W, G, wid * self.window_len
+        return W, G
 
     def entry(self, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Step t's rows for an explicit step, read from its window like
+        an approx segment's (fetched, with the next ones prefetched, if it
+        is not on the device yet), so no row takes a pageable copy of its
+        own."""
         wid = self._wid(t)
-        if wid in self._buf:
-            W, G, _ = self._buf[wid]
-            i = t - wid * self.window_len
-            if isinstance(W, EncodedWindow):
-                return decode_row(W, i), decode_row(G, i)
-            return W[i], G[i]
-        return self.history.entry(t)
+        if wid not in self._buf:
+            self._acquire(wid)
+        W, G, _ = self._buf[wid]
+        i = t - wid * self.window_len
+        if isinstance(W, EncodedWindow):
+            return decode_row(W, i), decode_row(G, i)
+        return W[i], G[i]
 
     def hbm_high_water(self) -> int:
         return self._hbm_high

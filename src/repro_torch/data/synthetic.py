@@ -1,5 +1,5 @@
 """Synthetic data generators (paper-scale stand-ins for MNIST/covtype and
-RCV1/HIGGS).  Deterministic in the seed: the same seed gives the same
+RCV1/HIGGS, and a token corpus for the LM).  Deterministic in the seed: the same seed gives the same
 arrays as the JAX package's generators, which draw from numpy the same way."""
 
 from __future__ import annotations
@@ -30,3 +30,19 @@ def multiclass_classification(
     y = rng.integers(0, num_classes, size=n).astype(np.int32)
     x = centers[y] + noise * rng.normal(size=(n, d)).astype(np.float32)
     return Dataset({"x": x.astype(np.float32), "y": y})
+
+
+def token_stream(n_docs: int, seq_len: int, vocab: int, seed: int = 0) -> Dataset:
+    """Synthetic LM corpus: each row is one document of `seq_len` token ids.
+
+    Tokens follow a per-document bigram chain so the LM objective has
+    learnable structure (deleting documents measurably moves the model)."""
+    rng = np.random.default_rng(seed)
+    tokens = np.empty((n_docs, seq_len), dtype=np.int32)
+    for i in range(n_docs):
+        shift = rng.integers(1, vocab)
+        t = rng.integers(0, vocab)
+        for j in range(seq_len):
+            tokens[i, j] = t
+            t = (t + shift + rng.integers(0, 3)) % vocab
+    return Dataset({"tokens": tokens})

@@ -1,0 +1,233 @@
+"""Shared neural building blocks (functions over dicts of tensors).
+
+The port's copy of the JAX package's ``models/layers.py``, for the dense
+GQA stack.  Conventions, as there:
+
+  * parameters are dicts of tensors; ``*_init`` builds them, ``*_apply``
+    consumes them;
+  * activations run in the caller's compute dtype (bf16 by default);
+    reductions (softmax, norms, losses) accumulate in f32.  Where the
+    reference asks XLA for an f32 product of bf16 operands
+    (``preferred_element_type``), the port upcasts the operands: products
+    of bf16 values are exact in f32, so only the order of the sum differs;
+  * attention is the blockwise online softmax (a loop over KV blocks), or
+    the flash kernel where `models.attention_config` selects it.
+
+Decode attention, ``gqa_decode`` and the KV caches are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.attention_config import attention_impl
+
+
+def dense_init(d_in: int, d_out: int, generator: torch.Generator,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, 1/d_in) weights, drawn on the generator's device."""
+    w = torch.randn(d_in, d_out, generator=generator, device=generator.device)
+    return (w / math.sqrt(d_in)).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, device=None) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones(d, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * params["scale"]  # scale: f32 math
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D) with D even; positions: (..., S).  Rotate-half:
+    the two halves of D are the pairs, not interleaved lanes."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, device=x.device)  # (d/2,)
+    ang = positions[..., :, None].float() * inv  # (..., S, d/2)
+    cos = torch.cos(ang)[..., :, None, :]  # (..., S, 1, d/2)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Blockwise (flash-style) attention: the plain path, and the flash
+# kernel's backward
+# --------------------------------------------------------------------------
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        block_k: int = 512, q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention, looping over KV blocks.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); H = Hkv * G.  `window > 0`
+    restricts attention to the last `window` positions; `q_offset` is the
+    absolute position of q[0].  Scores are f32 from the storage-dtype
+    operands, and P is cast back to v's dtype before the PV product, as in
+    the reference (layers.py:155)."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    blk = min(block_k, Sk)
+    Skp = -(-Sk // blk) * blk
+    if Skp > Sk:
+        k = F.pad(k, (0, 0, 0, 0, 0, Skp - Sk))
+        v = F.pad(v, (0, 0, 0, 0, 0, Skp - Sk))
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+
+    m = torch.full((B, Sq, Hkv, G), float("-inf"), device=q.device)
+    l = torch.zeros((B, Sq, Hkv, G), device=q.device)
+    acc = torch.zeros((B, Sq, Hkv, G, D), device=q.device)
+    for start in range(0, Skp, blk):
+        kblk, vblk = k[:, start:start + blk], v[:, start:start + blk]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kblk.float()) * scale
+        k_pos = start + torch.arange(blk, device=q.device)
+        valid = (k_pos < Sk)[None, None, :]
+        if causal:
+            valid = valid & (k_pos[None, None, :] <= q_pos[None, :, None])
+        if window > 0:
+            valid = valid & (k_pos[None, None, :] > q_pos[None, :, None] - window)
+        s = s.masked_fill(~valid[:, :, None, None, :], float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows
+        m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        p = torch.exp(s - m_safe[..., None])
+        p = p.masked_fill(~torch.isfinite(s), 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                           torch.zeros_like(m))
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(vblk.dtype).float(), vblk.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward with `blockwise_attention` as its backward.
+
+    The counterpart of the reference's ``_flash_attention_ref_grad``
+    (layers.py:173): the kernel is forward-only, but replay differentiates
+    every attention call, so `backward` recomputes `blockwise_attention`
+    on the saved (q, k, v) under autograd and returns its gradient, as the
+    reference takes the VJP of its blockwise program.  This backward is the
+    model's own plain PyTorch path, not a fallback for the kernel: the
+    forward on a CUDA tensor always launches the kernel or raises, and the
+    kernel's plain version (`attention_ref`) stays off the card's path."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_ops.attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = blockwise_attention(*qkv, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None
+
+
+def full_attention(q, k, v, *, causal: bool = True,
+                   window: int = 0) -> torch.Tensor:
+    """Route the full-sequence attention contraction, as the reference
+    does: flash takes the causal, non-windowed case when
+    `models.attention_config` selects it; everything else is
+    `blockwise_attention`."""
+    if attention_impl() == "flash" and causal and window == 0:
+        return FlashAttention.apply(q, k, v, causal)
+    return blockwise_attention(q, k, v, causal=causal, window=window)
+
+
+# --------------------------------------------------------------------------
+# GQA attention block
+# --------------------------------------------------------------------------
+
+
+def gqa_init(generator: torch.Generator, d_model: int, n_heads: int,
+             n_kv: int, d_head: int) -> Dict[str, torch.Tensor]:
+    return {
+        "wq": dense_init(d_model, n_heads * d_head, generator),
+        "wk": dense_init(d_model, n_kv * d_head, generator),
+        "wv": dense_init(d_model, n_kv * d_head, generator),
+        "wo": dense_init(n_heads * d_head, d_model, generator),
+    }
+
+
+def gqa_apply(params, x: torch.Tensor, *, n_heads: int, n_kv: int,
+              d_head: int, rope_theta: float, causal: bool = True,
+              window: int = 0, qk_norm: bool = False,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, n_heads, d_head)
+    k = (x @ params["wk"]).reshape(B, S, n_kv, d_head)
+    v = (x @ params["wv"]).reshape(B, S, n_kv, d_head)
+    if qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    o = full_attention(q, k, v, causal=causal, window=window)
+    return o.reshape(B, S, n_heads * d_head) @ params["wo"]
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+             kind: str) -> Dict[str, torch.Tensor]:
+    if kind == "swiglu":
+        return {"w_gate": dense_init(d_model, d_ff, generator),
+                "w_up": dense_init(d_model, d_ff, generator),
+                "w_down": dense_init(d_ff, d_model, generator)}
+    if kind in ("relu_sq", "gelu"):
+        return {"w_up": dense_init(d_model, d_ff, generator),
+                "w_down": dense_init(d_ff, d_model, generator)}
+    raise ValueError(kind)
+
+
+def mlp_apply(params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif kind == "relu_sq":
+        h = torch.square(F.relu(x @ params["w_up"]))
+    elif kind == "gelu":
+        h = F.gelu(x @ params["w_up"], approximate="tanh")
+    else:
+        raise ValueError(kind)
+    return h @ params["w_down"]

@@ -1,0 +1,71 @@
+"""The model facade: init, loss and objective of a configuration.
+
+The port's copy of the JAX package's ``models/registry.py`` for the dense
+family, and the bridge that carries the JAX LM's weights across:
+`params_from_jax` takes the reference's nested parameter tree (as numpy)
+and gives the port's `FlatParams`, in the same flat order.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.utils.tree import FlatParams, flatten_nested, key_order, nested
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+
+    def init(self, seed: int = 0, device=None) -> FlatParams:
+        """Random weights from ``torch.Generator(device).manual_seed(seed)``
+        (None: the card)."""
+        dev = torch.device("cuda" if device is None else device)
+        return transformer.init_params(
+            self.cfg, torch.Generator(device=dev).manual_seed(seed))
+
+    def loss_fn(self, params, batch, **kw) -> torch.Tensor:
+        """The batch's mean token loss (`transformer.lm_loss`)."""
+        return transformer.lm_loss(params, batch, self.cfg, **kw)
+
+    def per_row_loss_fn(self, params, batch, **kw) -> torch.Tensor:
+        """(B,) each row's mean token loss (`transformer.lm_loss_rows`)."""
+        return transformer.lm_loss_rows(params, batch, self.cfg, **kw)
+
+    def objective(self, *, remat: bool = False,
+                  loss_chunk: Optional[int] = None, l2: float = 0.0,
+                  attn_impl: Optional[str] = None,
+                  dtype: Optional[torch.dtype] = None):
+        """An engine `core.deltagrad.Objective` over this model's loss
+        (`Objective.from_model`)."""
+        from repro_torch.core.deltagrad import Objective
+        return Objective.from_model(self, remat=remat, loss_chunk=loss_chunk,
+                                    l2=l2, attn_impl=attn_impl, dtype=dtype)
+
+
+def build(cfg: ModelConfig) -> Model:
+    transformer.layout_of(cfg)  # raises for a family not ported
+    return Model(cfg=cfg)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Analytic parameter count (no allocation)."""
+    return sum(math.prod(s) for s in transformer.param_shapes(cfg).values())
+
+
+def params_from_jax(np_params: Mapping[str, Any], device) -> FlatParams:
+    """The JAX LM's nested parameter tree (numpy leaves, e.g. after
+    ``jax.device_get``) as the port's flat parameters on `device`."""
+    return FlatParams.from_tensors(flatten_nested(np_params), device=device)
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `params_from_jax`: a nested tree of f32 numpy arrays."""
+    return nested({k: params[k].detach().float().cpu().numpy()
+                   for k in key_order(params)})

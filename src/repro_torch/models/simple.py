@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.deltagrad import Objective
 from repro_torch.data.dataset import Dataset
-from repro_torch.utils.tree import FlatParams
+from repro_torch.utils.tree import FlatParams, key_order
 
 
 def mlp_init(d: int, hidden: int, num_classes: int,
@@ -59,4 +59,4 @@ def params_from_jax(np_params: Mapping[str, np.ndarray], device) -> FlatParams:
 
 def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of `params_from_jax`: a dict of f32 numpy arrays."""
-    return {k: params[k].detach().float().cpu().numpy() for k in sorted(params)}
+    return {k: params[k].detach().float().cpu().numpy() for k in key_order(params)}

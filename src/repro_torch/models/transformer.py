@@ -1,0 +1,237 @@
+"""Decoder-only LM: a stack of dense GQA blocks over stacked layer weights.
+
+The port's copy of the JAX package's ``models/transformer.py`` for dense
+stacks (InternLM2 and its kind).  Parameters are one `FlatParams` keyed by
+the reference's key paths (``embed``, ``final_norm/scale``, ``lm_head``,
+``u0/{ln1,ln2}/scale``, ``u0/mixer/{wk,wo,wq,wv}``,
+``u0/mlp/{w_down,w_gate,w_up}``), each layer weight stacked over the
+layers on a leading axis, so the flat vector is the reference's
+``ravel_pytree`` of its parameter tree.  The reference scans over the
+stacked axis; the port loops over it.  ``remat`` maps to
+``torch.utils.checkpoint`` per layer.
+
+Only the training forward (`lm_loss`, and its per-row form
+`lm_loss_rows`) is ported; ``prefill`` and ``decode_step`` wait for the
+KV caches.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention_config import (attention_impl,
+                                                 use_attention_impl)
+from repro_torch.models.layers import (gqa_apply, gqa_init, mlp_apply,
+                                       mlp_init, rmsnorm, rmsnorm_init)
+from repro_torch.utils.tree import FlatParams, flatten_nested, nested
+
+
+def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
+    """(unit, n_units) of a dense stack; raises for anything else."""
+    unit = tuple(cfg.layout_unit) if cfg.layout_unit else ("attn",)
+    if (cfg.family != "dense" or unit != ("attn",) or cfg.attention != "gqa"
+            or cfg.frontend != "tokens"):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA stacks of token models are ported "
+            f"(family {cfg.family!r}, unit {unit}, attention "
+            f"{cfg.attention!r}); the other model families are ROADMAP.md "
+            "queue 1, 'The rest'")
+    return unit, cfg.n_layers
+
+
+# --------------------------------------------------------------------------
+# Parameters
+# --------------------------------------------------------------------------
+
+
+def _block_init(generator: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    dev = generator.device
+    p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, dev),
+                         "ln2": rmsnorm_init(cfg.d_model, dev),
+                         "mixer": gqa_init(generator, cfg.d_model, cfg.n_heads,
+                                           cfg.n_kv_heads, cfg.head_dim),
+                         "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                         cfg.mlp)}
+    if cfg.qk_norm:
+        p["mixer"]["q_norm"] = rmsnorm_init(cfg.head_dim, dev)
+        p["mixer"]["k_norm"] = rmsnorm_init(cfg.head_dim, dev)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> FlatParams:
+    """Random weights drawn from `generator`, on its device: embedding
+    N(0, 0.02^2), dense weights N(0, 1/d_in), norm scales 1.  The numbers
+    differ from the JAX package's ``init_params`` (torch's generator is
+    not jax.random); tests carry weights across with
+    `models.registry.params_from_jax`."""
+    _, n_units = layout_of(cfg)
+    dev = generator.device
+    params: Dict[str, Any] = {
+        "embed": torch.randn(cfg.vocab, cfg.d_model, generator=generator,
+                             device=dev) * 0.02,
+        "final_norm": rmsnorm_init(cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = torch.randn(
+            cfg.d_model, cfg.vocab, generator=generator,
+            device=dev) / math.sqrt(cfg.d_model)
+    layers = [flatten_nested(_block_init(generator, cfg)) for _ in range(n_units)]
+    params["u0"] = nested({k: torch.stack([x[k] for x in layers])
+                           for k in layers[0]})
+    return FlatParams.from_tensors(flatten_nested(params), device=dev)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every leaf's shape, by key path, without allocating."""
+    _, L = layout_of(cfg)
+    d, hd = cfg.d_model, cfg.head_dim
+    shapes = {"embed": (cfg.vocab, d), "final_norm/scale": (d,),
+              "u0/ln1/scale": (L, d), "u0/ln2/scale": (L, d),
+              "u0/mixer/wq": (L, d, cfg.n_heads * hd),
+              "u0/mixer/wk": (L, d, cfg.n_kv_heads * hd),
+              "u0/mixer/wv": (L, d, cfg.n_kv_heads * hd),
+              "u0/mixer/wo": (L, cfg.n_heads * hd, d),
+              "u0/mlp/w_up": (L, d, cfg.d_ff), "u0/mlp/w_down": (L, cfg.d_ff, d)}
+    if cfg.mlp == "swiglu":
+        shapes["u0/mlp/w_gate"] = (L, d, cfg.d_ff)
+    if cfg.qk_norm:
+        shapes["u0/mixer/q_norm/scale"] = (L, hd)
+        shapes["u0/mixer/k_norm/scale"] = (L, hd)
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab)
+    return shapes
+
+
+def cast_params(params: Mapping[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    """Float32 leaves of a nested parameter dict cast to the compute dtype
+    (f32 master weights stay with the caller; norms, softmax and the loss
+    still accumulate in f32)."""
+    return {k: cast_params(v, dtype) if isinstance(v, Mapping)
+            else (v.to(dtype) if v.dtype == torch.float32 else v)
+            for k, v in params.items()}
+
+
+def _embed(params, batch, cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
+    return params["embed"][batch["tokens"]].to(dtype)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (2-D) with an f32 result from bf16 operands: the tensor cores'
+    bf16 product with f32 output on the card (``torch.mm(...,
+    out_dtype=float32)``, which the CPU build lacks), the upcast product on
+    the CPU.  Products of bf16 values are exact in f32, so the two differ
+    only in the order of the sum."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _HeadMatmul(torch.autograd.Function):
+    """h @ w with f32 logits from bf16 h and w (the reference's
+    ``preferred_element_type=f32``, transformer.py:216).  The backward
+    rounds the f32 cotangent to bf16 and takes both products the same way,
+    so every GEMM of the head runs on the tensor cores; the gradients come
+    out in the operands' dtype, as the reference's do."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return _mm_f32(h.reshape(-1, h.shape[-1]), w).reshape(
+            *h.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        h2 = h.reshape(-1, h.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1]).to(w.dtype)
+        dh = _mm_f32(g2, w.t()).to(h.dtype).reshape(h.shape)
+        dw = _mm_f32(h2.t(), g2).to(w.dtype)
+        return dh, dw
+
+
+def _lm_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    if h.dtype == torch.float32 and w.dtype == torch.float32:
+        return h @ w
+    return _HeadMatmul.apply(h, w)
+
+
+# --------------------------------------------------------------------------
+# Forward
+# --------------------------------------------------------------------------
+
+
+def _block_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = gqa_apply(p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                  d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
+                  window=cfg.attn_window, qk_norm=cfg.qk_norm)
+    x = x + h
+    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp)
+
+
+def forward_hidden(params, x: torch.Tensor, cfg: ModelConfig, *,
+                   remat: bool = False) -> torch.Tensor:
+    """Run the block stack on x (B, S, d), the embedded input; returns the
+    final-normed hidden states.  ``params`` is the nested (cast) dict."""
+    _, n_units = layout_of(cfg)
+    impl = attention_impl()
+
+    def block(p, y):
+        # the recompute runs in the backward pass, after the caller's
+        # attention switch is gone: pin the one the forward pass used
+        with use_attention_impl(impl):
+            return _block_apply(p, y, cfg)
+
+    for u in range(n_units):
+        p = _slice(params["u0"], u)
+        if remat:
+            x = checkpoint(block, p, x, use_reentrant=False)
+        else:
+            x = _block_apply(p, x, cfg)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def _slice(tree, u: int):
+    """Layer u's weights: a view of each stacked leaf."""
+    return {k: _slice(v, u) if isinstance(v, Mapping) else v[u]
+            for k, v in tree.items()}
+
+
+def lm_loss_rows(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
+                 *, dtype: torch.dtype = torch.bfloat16, remat: bool = True,
+                 loss_chunk: int = 512) -> torch.Tensor:
+    """(B,) per-row next-token cross-entropy: row i's value is the mean
+    masked token loss of document i alone, which is what the reference's
+    `lm_loss` gives on the batch of that one row.  Rows never mix in this
+    model, so one batched forward computes every row's loss.  The logits
+    are taken `loss_chunk` positions at a time (f32, from bf16 operands)."""
+    p = cast_params(nested(params), dtype)
+    tokens = batch["tokens"].long()
+    batch = {**batch, "tokens": tokens}
+    h = forward_hidden(p, _embed(p, batch, cfg, dtype), cfg, remat=remat)
+    B, S, _ = h.shape
+    targets = F.pad(tokens[:, 1:], (0, 1))
+    C = min(loss_chunk, S)
+    total = torch.zeros(B, device=h.device)
+    for a in range(0, S, C):
+        logits = _lm_head(p, h[:, a:a + C], cfg)
+        logz = torch.logsumexp(logits, dim=-1)
+        true = logits.gather(-1, targets[:, a:a + C, None])[..., 0]
+        valid = torch.arange(a, a + logits.shape[1], device=h.device) < S - 1
+        total = total + ((logz - true) * valid).sum(dim=-1)
+    return total / max(S - 1, 1)
+
+
+def lm_loss(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
+            **kw) -> torch.Tensor:
+    """The batch's mean masked token loss (the reference's `lm_loss`):
+    every row has S - 1 targets, so it is the mean of `lm_loss_rows`."""
+    return lm_loss_rows(params, batch, cfg, **kw).mean()

@@ -2,35 +2,72 @@
 
 DeltaGrad's L-BFGS machinery needs only inner products and linear
 combinations of parameter-shaped objects.  The port keeps every parameter
-set as ONE flat buffer whose leaves, in sorted-key order, are views into it
-(`FlatParams`).  That is the order jax's ``ravel_pytree`` gives a dict, so a
-flat vector of the port compares directly with one of the JAX package, and
-each kernel runs once per step over all of p instead of once per leaf.
+set as ONE flat buffer whose leaves are views into it (`FlatParams`).  A
+nested parameter dict (the LM's ``{"u0": {"mixer": {"wq": ...}}}``) is
+kept flat under its ``/``-joined key paths (``"u0/mixer/wq"``), and the
+leaves are laid out in `key_order`: sorted by key path, which is the order
+jax's ``ravel_pytree`` gives the nested dict.  So a flat vector of the port
+compares directly with one of the JAX package, and each kernel runs once
+per step over all of p instead of once per leaf.  `nested` gives the nested
+view back.
 
 The ``tree_*`` helpers take a dict of tensors or a single tensor (its own
-one leaf), and walk dict leaves in sorted-key order like ``jax.tree``.
+one leaf), and walk dict leaves in `key_order` like ``jax.tree``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Iterable, List, Mapping, Tuple, Union
 
 import torch
 
 Tree = Union[torch.Tensor, Mapping[str, torch.Tensor]]
+SEP = "/"
+
+
+def key_order(keys: Iterable[str]) -> List[str]:
+    """Keys sorted by their path (``"a/b"`` as ``("a", "b")``): jax's
+    tree-flatten order for the nested dict the paths spell out."""
+    return sorted(keys, key=lambda k: tuple(k.split(SEP)))
+
+
+def flatten_nested(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A nested dict of leaves as ``{"a/b": leaf}`` (a leaf is anything
+    that is not a dict), in `key_order`."""
+    out: Dict[str, Any] = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            out.update(flatten_nested(v, f"{prefix}{k}{SEP}"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return {k: out[k] for k in key_order(out)}
+
+
+def nested(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of `flatten_nested`: ``{"a/b": x}`` -> ``{"a": {"b": x}}``
+    (the leaves themselves, e.g. views of a `FlatParams`, not copies)."""
+    out: Dict[str, Any] = {}
+    for k in key_order(flat):
+        *path, last = k.split(SEP)
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = flat[k]
+    return out
 
 
 def _leaves(a: Tree):
     if isinstance(a, torch.Tensor):
         return [a]
-    return [a[k] for k in sorted(a)]
+    return [a[k] for k in key_order(a)]
 
 
 def tree_sub(a: Tree, b: Tree) -> Tree:
     if isinstance(a, torch.Tensor):
         return a - b
-    return {k: a[k] - b[k] for k in sorted(a)}
+    return {k: a[k] - b[k] for k in key_order(a)}
 
 
 def tree_vdot(a: Tree, b: Tree) -> torch.Tensor:
@@ -56,8 +93,8 @@ def tree_all_finite(a: Tree) -> torch.Tensor:
 class FlatParams(dict):
     """A dict of parameter tensors that are views into one flat buffer.
 
-    Leaves are laid out in sorted-key order, each raveled row-major: the
-    layout of ``jax.flatten_util.ravel_pytree`` on the same dict.  ``flat``
+    Leaves are laid out in `key_order`, each raveled row-major: the layout
+    of ``jax.flatten_util.ravel_pytree`` on the same (nested) dict.  ``flat``
     is the buffer; ``with_flat`` gives another buffer the same layout.
     """
 
@@ -66,7 +103,7 @@ class FlatParams(dict):
             raise ValueError(f"flat buffer must be 1-D, got {tuple(flat.shape)}")
         views = {}
         off = 0
-        for k in sorted(shapes):
+        for k in key_order(shapes):
             n = math.prod(shapes[k])
             views[k] = flat[off:off + n].view(tuple(shapes[k]))
             off += n
@@ -75,13 +112,13 @@ class FlatParams(dict):
         super().__init__(views)
         self.flat = flat
         self.shapes: Dict[str, Tuple[int, ...]] = {
-            k: tuple(shapes[k]) for k in sorted(shapes)}
+            k: tuple(shapes[k]) for k in key_order(shapes)}
 
     @classmethod
     def from_tensors(cls, tensors: Mapping[str, object], device=None,
                      dtype: torch.dtype = torch.float32) -> "FlatParams":
         """Copy a dict of arrays (numpy or torch) into one new flat buffer."""
-        names = sorted(tensors)
+        names = key_order(tensors)
         parts = [torch.as_tensor(tensors[k]) for k in names]
         flat = torch.cat([x.to(device=device, dtype=dtype).reshape(-1)
                           for x in parts])

@@ -9,7 +9,10 @@ the port's CPU run within 1e-5 with equal counters.  The dequant kernels
 are exact where the design makes them so: dequant_sub bitwise its plain
 version, dequant_update bitwise fused_update on the decoded row (and within
 1e-5 relative of its plain version, whose update rounds apart what nvcc
-contracts).
+contracts).  The flash kernel against its plain version at the reference
+sweep's tolerances, 2e-5 (f32) and 3e-2 (bf16), elementwise as
+``assert_close`` counts them; the LM objective on the card against the CPU
+at the reference's model bar (loss 5e-3, gradient 5e-2 relative).
 """
 
 import numpy as np
@@ -23,10 +26,14 @@ from repro_torch.kernels.dequant_update.ops import dequant_sub, dequant_update
 from repro_torch.kernels.dequant_update.ref import (dequant_ref,
                                                     dequant_sub_ref,
                                                     dequant_update_ref)
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_update.ops import update
 from repro_torch.kernels.fused_update.ref import deltagrad_update_ref
 from repro_torch.kernels.lbfgs.ops import multidot, rank_update
 from repro_torch.kernels.lbfgs.ref import rank_update_ref
+from repro_torch.models.registry import build
 from repro_torch.models.simple import mlp_init, mlp_objective
 
 DTYPES = {"f32": (torch.float32, 1e-5), "bf16": (torch.bfloat16, 1e-2)}
@@ -155,3 +162,74 @@ def test_streamed_kernel_replay_on_card_matches_cpu(cuda, codec):
     assert st_card.approx_steps > 0
     assert n_card == [st_card.approx_steps, st_card.approx_steps, 0]
     assert n_cpu == [0, 0, 0]
+
+
+# the reference's flash sweep (tests/test_kernels.py) and the LM's shape
+FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
+                (2, 100, 4, 1, 64, True), (1, 128, 2, 2, 128, False),
+                (1, 64, 4, 4, 16, True), (4, 512, 16, 8, 128, True)]
+FLASH_TOL = {"f32": 2e-5, "bf16": 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(FLASH_TOL))
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal", FLASH_SHAPES)
+def test_flash_matches_plain_version_on_card(cuda, B, S, H, Hkv, D, causal,
+                                             dtype):
+    tdt = DTYPES[dtype][0]
+    g = torch.Generator(device="cpu").manual_seed(B * 1000 + S + D)
+    q = torch.randn(B, S, H, D, generator=g).to(cuda, tdt)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g).to(cuda, tdt) for _ in range(2))
+    before = attention.launches
+    out = attention(q, k, v, causal=causal)
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=causal).transpose(1, 2)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert out.shape == q.shape and out.dtype == tdt and out.is_contiguous()
+    assert torch.equal(out, attention(q, k, v, causal=causal))  # no atomics
+    torch.cuda.synchronize()
+    assert attention.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_raises_instead_of_falling_back(cuda):
+    kv = torch.randn(1, 64, 2, 16, device=cuda)
+    before = attention.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        attention(torch.randn(1, 4, 64, 16, device=cuda).transpose(1, 2), kv, kv)
+    for d in (8, 48):  # not one of the kernel's head dims
+        with pytest.raises(ValueError, match="head dims"):
+            attention(torch.randn(1, 64, 4, d, device=cuda),
+                      torch.randn(1, 64, 2, d, device=cuda),
+                      torch.randn(1, 64, 2, d, device=cuda))
+    with pytest.raises(ValueError, match="block-aligned"):
+        attention(torch.randn(1, 200, 4, 16, device=cuda),
+                  torch.randn(1, 200, 2, 16, device=cuda),
+                  torch.randn(1, 200, 2, 16, device=cuda), causal=False)
+    assert attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_lm_flash_objective_on_card_matches_cpu(cuda, dtype):
+    cfg = get_config("internlm2-1.8b").reduced(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=96,
+        d_head=16)
+    model = build(cfg)
+    obj = model.objective(loss_chunk=8, attn_impl="flash", dtype=dtype)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 96, size=(6, 24))).long()
+    out = {}
+    for where in ("cuda", "cpu"):
+        p = model.init(seed=1, device="cpu").to(where)
+        batch, w = {"tokens": tokens.to(where)}, torch.ones(6, device=where)
+        before = attention.launches
+        loss = obj.weighted_mean_loss(p, batch, w)
+        grad = obj.make_grad_fn()(p, batch, w)
+        out[where] = (loss.item(), grad.cpu(), attention.launches - before)
+    (l_c, g_c, n_c), (l_p, g_p, n_p) = out["cuda"], out["cpu"]
+    assert abs(l_c - l_p) < 5e-3
+    assert ((g_c - g_p).norm() / g_p.norm()).item() < 5e-2
+    assert n_c == 2 * 2 and n_p == 0  # 2 layers x 2 forward passes

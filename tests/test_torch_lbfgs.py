@@ -84,5 +84,8 @@ def test_buffer_admission_and_ring():
     assert dW.shape == (2, 4) and dW.is_contiguous()
     assert torch.equal(dW[:, 0], torch.tensor([2.0, 3.0]))
     assert (len(buf), buf.admitted, buf.rejected) == (2, 3, 2)
+    # the ring keeps views of the stacked pairs, not copies of its own
+    assert all(x.untyped_storage().data_ptr() == dW.untyped_storage().data_ptr()
+               for x in buf._dws)
     with pytest.raises(ValueError):
         LbfgsBuffer(2).stacked()

@@ -131,13 +131,15 @@ def test_lossy_codes_replay_like_jax(case, mode):
     _counters_equal(st, j_st)
     assert st.extra["store"] == "streamed"
     assert st.extra["stream_decode"] == mode
-    # windows are fetched for approx segments only (explicit steps read
-    # the history), in both packages
-    assert st.extra["windows"] == j_st.extra.get("windows", 0)
+    # the reference fetches windows for approx segments only (its explicit
+    # steps read the history row by row); the port's explicit steps read
+    # their rows from the windows too, so each of the 3 windows of 8 steps
+    # is fetched exactly once, whatever the steps' kinds
+    assert st.extra["windows"] == 3 >= j_st.extra.get("windows", 0)
     if case == "int8":
         assert st.approx_steps == 0 and st.pairs_rejected == st.explicit_steps
     else:
-        assert st.approx_steps > 0 and st.extra["windows"] == 3
+        assert st.approx_steps > 0
 
 
 @pytest.mark.parametrize("window", [8, 12])
