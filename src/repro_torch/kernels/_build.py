@@ -38,7 +38,7 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
     """The library's path, keyed by its source and the shared headers."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
@@ -58,7 +58,7 @@ def _nvcc() -> str:
 def _compile(names: Sequence[str]) -> None:
     """One nvcc per source, all started together; ptxas's report goes to
     ``_build/<name>.log``."""
-    todo = [n for n in names if not _target(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,7 +76,7 @@ def _compile(names: Sequence[str]) -> None:
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{out}")
         else:
-            os.replace(tmp, _target(name))  # atomic: readers see whole files
+            os.replace(tmp, library_path(name))  # atomic: readers see whole files
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
@@ -103,7 +103,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             _compile([name])
-            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 

@@ -5,7 +5,8 @@ dtype (f32 or bf16) and device; the output is (B, Sq, H, D) in q's dtype.
 On the CPU this is `attention_ref` (on the transposed operands); on the
 card, ``csrc/flash_attention.cu``, which reads the (B, S, H, D) layout
 through strides and masks ragged tails, so nothing is padded or
-transposed.
+transposed: bf16 on the tensor cores (its operands 16-byte aligned), f32
+on FMAs.
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel takes head dims "
                          f"{HEAD_DIMS}, got {q.shape[-1]}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the bf16 kernel copies 16-byte "
+                         "chunks; its operands must be 16-byte aligned")
     out = torch.empty_like(q)
     K.flash_attention(q, k, v, out, causal)
     attention.launches += 1

@@ -164,10 +164,15 @@ def test_streamed_kernel_replay_on_card_matches_cpu(cuda, codec):
     assert n_cpu == [0, 0, 0]
 
 
-# the reference's flash sweep (tests/test_kernels.py) and the LM's shape
+# the reference's flash sweep (tests/test_kernels.py), the edges of the
+# kernel's 64-row tiles (S = 1, 65, 127; causal S = 512 at G = 1 and 8;
+# non-causal S = 256) and the LM's shape
 FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
                 (2, 100, 4, 1, 64, True), (1, 128, 2, 2, 128, False),
-                (1, 64, 4, 4, 16, True), (4, 512, 16, 8, 128, True)]
+                (1, 64, 4, 4, 16, True), (3, 1, 4, 2, 64, True),
+                (2, 65, 8, 2, 128, True), (1, 127, 4, 4, 32, False),
+                (1, 512, 4, 4, 64, True), (2, 512, 8, 1, 128, True),
+                (2, 256, 4, 2, 64, False), (4, 512, 16, 8, 128, True)]
 FLASH_TOL = {"f32": 2e-5, "bf16": 3e-2}
 
 
@@ -207,6 +212,13 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda):
         attention(torch.randn(1, 200, 4, 16, device=cuda),
                   torch.randn(1, 200, 2, 16, device=cuda),
                   torch.randn(1, 200, 2, 16, device=cuda), causal=False)
+    # contiguous, but 2 bytes past a 16-byte boundary: the bf16 kernel's
+    # 16-byte copies refuse it
+    kvb = kv.to(torch.bfloat16)
+    off = torch.zeros(64 * 4 * 16 + 1, device=cuda,
+                      dtype=torch.bfloat16)[1:].view(1, 64, 4, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention(off, kvb, kvb)
     assert attention.launches == before
 
 

@@ -62,11 +62,19 @@ LR = ((0, 0.05),)
 DG = dict(period=2, burn_in=4, history_size=2, guard=True, curvature_eps=1e-8)
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
-# tests/test_kernels.py's flash sweep: (B, S, H, Hkv, D, causal)
+# tests/test_kernels.py's flash sweep: (B, S, H, Hkv, D, causal), then the
+# edges of the card kernel's 64-row tiles (S = 1, 65, 127; causal S = 512
+# at G = 1 and 8; non-causal S = 256)
 FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
                 (2, 100, 4, 1, 64, True), (1, 128, 2, 2, 128, False),
-                (1, 64, 4, 4, 16, True)]
-FLASH_BLOCKS = {128: 64, 256: 128, 100: 32, 64: 16}  # the sweep's block_q
+                (1, 64, 4, 4, 16, True), (3, 1, 4, 2, 64, True),
+                (2, 65, 8, 2, 128, True), (1, 127, 4, 4, 32, False),
+                (1, 512, 4, 4, 64, True), (2, 512, 8, 1, 128, True),
+                (2, 256, 4, 2, 64, False)]
+# the Pallas kernel's block_q by S: the sweep's, then a block that pads the
+# ragged causal shapes, or one block where non-causal needs S aligned
+FLASH_BLOCKS = {128: 64, 256: 128, 100: 32, 64: 16, 1: 1, 65: 32, 127: 128,
+                512: 128}
 
 
 def _cfgs():
