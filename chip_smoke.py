@@ -12,7 +12,8 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      SASS (cuobjdump);
   2. each CUDA kernel against its plain PyTorch version on the card, in f32
      and bf16, at the main path's shapes and a ragged one; the dequant
-     kernels with q int8 and bf16, with and without a keyframe base;
+     kernels with q int8 and bf16, with and without a keyframe base; the
+     update kernels also in the estimate form the online request calls;
   3. each kernel's time on the card beside its bound, its plain version's
      and the matching PyTorch library call's; the five p-length kernels
      also at the LM's p, cold;
@@ -39,7 +40,20 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      p-length kernels ranked by launches x (ms - bound_ms) on the LM's
      main path.  Phase 2 holds the flash kernel against its plain
      version, phase 3 times it, phase 7 holds the LM replay on the card
-     against the port's CPU run at a reduced size.
+     against the port's CPU run at a reduced size.  The recipe is the
+     reference's (j0 = 6); each B v's ||Bv||/||v|| is printed;
+ 10. logistic regression at the rcv1.binary shape (n 20,242, d 47,236,
+     3.8 GB of f32 features on the card) on the paper's recipe: delete,
+     heavy-ball delete and add replays against BaseL and against the
+     port's CPU run of the same replay, with the launches of fused_update,
+     multidot and rank_update in each;
+ 11. Algorithm 3: delete, add and heavy-ball (lr 0.1) delete streams of 8
+     requests at n 8000, d 4000, each against the port's CPU run of the
+     same stream and against BaseL, with per-request times and launches;
+     then a host-tier delta_int8 stream, kernel mode against fetch mode.
+
+Phase 2 also holds the bf16 flash kernel to the reference flash's f32 P:
+its mean |err|/(1+|plain|) below a quarter of the bf16-P softmax's.
 
 It prints one JSON line of per-kernel results, then the card's name and
 power limit, and as its last line the JSON result.  It exits non-zero,
@@ -86,12 +100,25 @@ FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
                 (2, 65, 8, 2, 128, True), (1, 127, 4, 4, 32, False),
                 (1, 512, 4, 4, 64, True), (2, 512, 8, 1, 128, True),
                 (2, 256, 4, 2, 64, False), (32, 512, 16, 8, 128, True)]
-FLASH_TOL = {"f32": 2e-5, "bf16": 3e-2}
+FLASH_TOL = {"f32": 2e-5, "bf16": 3e-2}  # the outer, elementwise bar
 # the LM phase: InternLM2-1.8B at its published widths, 2 of its 24 layers
 LM = dict(layers=2, docs=128, seq=512, batch=32, steps=12, lr=0.01, seed=5,
           window=2, loss_chunk=128, n_params=504_899_584)
-LM_DG = dict(period=4, burn_in=3, history_size=2, guard=True,
+# the reference's LM recipe (benchmarks/bench_lm.py:59-61): lr 0.01, T0 = 4,
+# j0 = 6, m = 2, the guard; explicit at t <= 6 and t = 10, approx at 7, 8, 9
+# and 11
+LM_DG = dict(period=4, burn_in=6, history_size=2, guard=True,
              curvature_eps=1e-8, stream_window=2)
+# phase 10: logistic regression at the LIBSVM rcv1.binary training shape
+# (paper §4.1), paper_logreg's recipe, B and T of benchmarks/common.py:43
+LOGREG = dict(n=20242, d=47236, batch=4096, steps=60, r=20, seed=0)
+# phase 11: Algorithm 3 at benchmarks/bench_online.py's paper scale
+# (benchmarks/common.py:43 and :58), 8 requests per stream; the heavy-ball
+# stream at lr 0.1, the reference's momentum test's (tests/test_online.py)
+ONLINE = dict(n=8000, d=4000, batch=4096, steps=60, lr=0.3, l2=5e-3,
+              period=5, burn_in=10, m=2, seed=0, requests=8, window=16,
+              momentum_lr=0.1)
+ONLINE_TOL = 1e-5  # card against the port's CPU run, max |gap| of w
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -314,6 +341,16 @@ def main() -> int:
                 fail(f"fused_update {dname} p={p} rel_err {rel:.3e} > {tol}")
             if main_shape:
                 kernels["fused_update"]["max_abs_err"] = err
+            # the estimate form (the online request): the step and the estimate
+            got = update(w, g, v, gc, 0.1, 60000.0, 37.0, 1.0, with_g=True)
+            ref = deltagrad_update_ref(w, g, v, gc, 0.1, 60000.0, 37.0, 1.0,
+                                       with_g=True)
+            rel = max(((a.float() - b.float()).abs().max()
+                       / b.float().abs().max()).item() for a, b in zip(got, ref))
+            print(f"check fused_update with_g {dname} p={p}: rel_err={rel:.3e} "
+                  f"tol={tol}")
+            if not rel <= tol:
+                fail(f"fused_update with_g {dname} p={p} rel_err {rel:.3e} > {tol}")
 
             sums = multidot(dW, dG, v)
             plain = multidot_ref(dW, dG, v)
@@ -392,12 +429,46 @@ def main() -> int:
                 if gap != 0.0:
                     fail(f"dequant_update {what} differs from fused_update on "
                          f"the decoded row by {gap}")
+                pair = dequant_update(w, q, bv, gc, *upd_args, scale, bounds,
+                                      base, with_g=True)
+                want = update(w, dequant_ref(q, scale, bounds, base), bv, gc,
+                              *upd_args, with_g=True)
+                ref = dequant_update_ref(w, q, bv, gc, *upd_args, scale,
+                                         bounds, base, with_g=True)
+                gap = max((a - b).abs().max().item() for a, b in zip(pair, want))
+                rel = max(((a - b).abs().max() / b.abs().max()).item()
+                          for a, b in zip(pair, ref))
+                print(f"check dequant_update with_g {what}: rel_err={rel:.3e} "
+                      f"tol=1e-05; vs fused_update with_g on the decoded row "
+                      f"{gap} (want 0)")
+                if not (rel <= 1e-5 and gap == 0.0):
+                    fail(f"dequant_update with_g {what}: rel_err {rel:.3e}, "
+                         f"{gap} from fused_update with_g")
                 if main_shape:
                     kernels["dequant_update"]["max_abs_err"] = err
     torch.cuda.synchronize()
 
     # flash: |kernel - plain| <= tol * (1 + |plain|), elementwise (the
-    # reference sweep's allclose), and two calls bitwise equal
+    # reference sweep's allclose), and two calls bitwise equal.  In bf16 the
+    # kernel must also keep the reference flash's f32 P: against the plain
+    # version (f32 P) its MEAN |err|/(1+|plain|) stays below a quarter of
+    # the same mean for the dense softmax with P rounded to bf16 before
+    # P V.  The max cannot tell the two apart: both outputs are rounded to
+    # bf16, and its one-ulp flips set the max of either; a flip's chance
+    # grows with the f32 difference under it, so the mean follows that.
+    def softmax_bf16_p(q, k, v, causal):  # (B, H, S, D)
+        B_, H_, Sq, D_ = q.shape
+        Hkv_, Sk = k.shape[1], k.shape[2]
+        qg = q.reshape(B_, Hkv_, H_ // Hkv_, Sq, D_).float()
+        sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(D_)
+        if causal:
+            keep = (torch.arange(Sk, device=dev)[None, :]
+                    <= torch.arange(Sq, device=dev)[:, None])
+            sc = sc.masked_fill(~keep, float("-inf"))
+        pb = torch.softmax(sc, dim=-1).to(torch.bfloat16).float()
+        o = torch.einsum("bhgqk,bhkd->bhgqd", pb, v.float())
+        return o.reshape(B_, H_, Sq, D_).to(q.dtype)
+
     for B, S, H, Hkv, D, causal in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = "f32" if dtype == torch.float32 else "bf16"
@@ -406,22 +477,38 @@ def main() -> int:
             k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
                     for _ in range(2))
             got = attention(q, k, v, causal=causal)
-            ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal).transpose(1, 2)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            ref = attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)
             diff = (got.float() - ref.float()).abs()
             err = diff.max().item()
-            worst = (diff / (1 + ref.float().abs())).max().item()
+            rel = diff / (1 + ref.float().abs())
+            worst, mean = rel.max().item(), rel.mean().item()
             same = torch.equal(got, attention(q, k, v, causal=causal))
             what = f"B={B} S={S} H={H} Hkv={Hkv} D={D} causal={causal} {dname}"
+            p_gap = ""
+            if dtype == torch.bfloat16:
+                bp = softmax_bf16_p(qt, kt, vt, causal).transpose(1, 2).float()
+                g_rel = (bp - ref.float()).abs() / (1 + ref.float().abs())
+                g_max, g_mean = g_rel.max().item(), g_rel.mean().item()
+                p_gap = (f" bf16-P gap: max={g_max:.3e} mean={g_mean:.3e}; "
+                         f"kernel mean={mean:.3e} (bar: <= gap mean / 4 = "
+                         f"{g_mean / 4:.3e})")
+                if not mean <= g_mean / 4:
+                    fail(f"flash_attention {what}: mean |err|/(1+|plain|) "
+                         f"{mean:.3e} not below a quarter of the bf16-P gap "
+                         f"{g_mean:.3e}")
+                del bp, g_rel
             print(f"check flash_attention {what}: abs_err={err:.3e} "
-                  f"max|err|/(1+|plain|)={worst:.3e} tol={tol} repeat_bitwise={same}")
+                  f"max|err|/(1+|plain|)={worst:.3e} tol={tol} "
+                  f"repeat_bitwise={same}{p_gap}")
             if not worst <= tol:
                 fail(f"flash_attention {what}: {worst:.3e} > {tol}")
             if not same:
                 fail(f"flash_attention {what}: two calls differ")
             if (B, S) == (32, 512) and dtype == torch.bfloat16:
                 kernels["flash_attention"]["max_abs_err"] = err
-            del q, k, v, got, ref, diff
+                flash_p = dict(mean=mean, max=worst, gap_mean=g_mean, gap_max=g_max)
+            del q, k, v, got, ref, diff, rel
     torch.cuda.synchronize()
 
     # -- 3. time each kernel at the main path's shape (m = 2, f32) ----------------
@@ -525,7 +612,10 @@ def main() -> int:
           f"{fa_flops / PEAK_BF16_FLOP_PER_S * 1e3:.5f} ms, f32-FMA floor "
           f"{fa_flops / PEAK_F32_FLOP_PER_S * 1e3:.5f} ms) "
           f"achieved_tflops={fa_flops / k_fa['ms'] / 1e9:.2f} "
-          f"eager_call_ms={k_fa['eager_call_ms']:.5f}", flush=True)
+          f"eager_call_ms={k_fa['eager_call_ms']:.5f}; against the f32-P plain "
+          f"version mean|err|/(1+|plain|)={flash_p['mean']:.3e} "
+          f"max={flash_p['max']:.3e}, bf16-P gap mean={flash_p['gap_mean']:.3e} "
+          f"max={flash_p['gap_max']:.3e}", flush=True)
     q, k, v = q.float(), k.float(), v.float()  # the f32 instance, on FMAs
     f32_ms = graph_ms(torch, lambda: attention(q, k, v, causal=True), calls=10, replays=5)
     f32_bound = bound_ms(2 * fa_bytes, fa_flops)  # f32 FMAs
@@ -879,7 +969,13 @@ def main() -> int:
     print("lm_p " + json.dumps({"p": LM["n_params"], "kernels": [
         dict(name=n, **lm_p[n]) for n in rank]}), flush=True)
 
-    # -- 10. results ---------------------------------------------------------------
+    # -- 10. logistic regression at the RCV1 shape; 11. Algorithm 3 ---------------
+    gc_collect()
+    logreg_phase(torch, np, dev, kernels)
+    gc_collect()
+    online_phase(torch, np, dev, kernels)
+
+    # -- results ---------------------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", file=sys.stderr)
         for f in FAILURES:
@@ -897,6 +993,251 @@ def main() -> int:
     return 0
 
 
+def gc_collect() -> None:
+    """Free what an earlier phase left (host arrays, cached device blocks)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def counted_run(kernels, fn):
+    """fn() with every kernel's launch count set to 0 just before and read
+    just after: (fn's result, {kernel: launches})."""
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    out = fn()
+    return out, {n: k["wrapper"].launches for n, k in kernels.items()}
+
+
+def logreg_phase(torch, np, dev, kernels) -> None:
+    """Phase 10: the paper's L2-regularised logistic regression at the
+    LIBSVM rcv1.binary training shape (paper §4.1; synthetic features at
+    that shape, dense f32 on the card), paper_logreg's recipe with B 4096
+    and T 60: a delete and an add replay of r rows, and a heavy-ball
+    (0.9) delete replay, each against BaseL on the changed data."""
+    from repro_torch.configs.paper_logreg import RECIPE
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core.history import HistoryMeta
+    from repro_torch.data.synthetic import binary_classification
+    from repro_torch.models.simple import (logreg_accuracy, logreg_init,
+                                           logreg_objective)
+
+    L = LOGREG
+    t0 = time.perf_counter()
+    ds = binary_classification(L["n"], L["d"], seed=L["seed"])
+    cols = ds.device_columns(dev)
+    cols["x"][-1, -1].item()  # the upload has landed
+    print(f"logreg: rcv1.binary shape n={ds.n} d={L['d']} "
+          f"({ds.columns['x'].nbytes / 1e9:.3f} GB f32 on the card) "
+          f"B={L['batch']} T={L['steps']} r={L['r']} lr={RECIPE.lr} "
+          f"l2={RECIPE.l2} T0={RECIPE.period} j0={RECIPE.burn_in} "
+          f"m={RECIPE.history_size}; data set-up {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    del cols
+    obj = logreg_objective(l2=RECIPE.l2)
+    p0 = logreg_init(L["d"], generator=torch.Generator().manual_seed(L["seed"]),
+                     device=dev)
+    cfg = dg.DeltaGradConfig(period=RECIPE.period, burn_in=RECIPE.burn_in,
+                             history_size=RECIPE.history_size)
+    changed = np.random.default_rng(L["seed"] + 1).choice(ds.n, size=L["r"],
+                                                          replace=False)
+
+    def meta(momentum=0.0, steps=L["steps"]):
+        return HistoryMeta(n=L["n"], batch_size=L["batch"], seed=L["seed"],
+                           steps=steps, lr_schedule=((0, RECIPE.lr),),
+                           momentum=momentum)
+
+    # warm-up, counted as set-up: cuBLAS, the solver, every kernel's first call
+    _, h = dg.sgd_train_with_cache(obj, p0, ds, meta(steps=14), device=dev)
+    dg.deltagrad_retrain(obj, h, ds, changed, cfg, device=dev)
+    del h
+    acc0 = logreg_accuracy(p0, ds)
+
+    cpu = torch.device("cpu")
+
+    def run(label, momentum, mode, trained=None):
+        """Train (unless `trained` carries the card's and the CPU's
+        (w*, history)), BaseL and the replay on the card, then the same
+        replay in the port on the CPU, which the card's must equal."""
+        m = meta(momentum)
+        train_s = float("nan")
+        if trained is None:
+            ds.device_columns(dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            w_star, hist = dg.sgd_train_with_cache(obj, p0, ds, m, device=dev)
+            train_s = time.perf_counter() - t1
+            trained = ((w_star, hist), dg.sgd_train_with_cache(
+                obj, p0.to(cpu), ds, m, device=cpu))
+        (w_star, hist), (_, hist_cpu) = trained
+        ch = changed
+        if mode == "add":  # the same rows again, appended
+            ch = ds.append({k: c[changed] for k, c in ds.columns.items()})
+        ds.device_columns(dev)  # the upload is set-up, not BaseL's time
+        torch.cuda.synchronize()
+        w_u, st_u = dg.baseline_retrain(obj, ds, m, p0, ch, mode=mode,
+                                        device=dev)
+        (w_i, st), n = counted_run(kernels, lambda: dg.deltagrad_retrain(
+            obj, hist, ds, ch, cfg, mode=mode, device=dev))
+        w_c, st_c = dg.deltagrad_retrain(obj, hist_cpu, ds, ch, cfg, mode=mode,
+                                         device=cpu)
+        gap = (w_i.flat.cpu() - w_c.flat).abs().max().item()
+        same = st.counters() == st_c.counters()
+        d_ui = (w_u.flat - w_i.flat).norm().item()
+        d_us = (w_u.flat - w_star.flat).norm().item()
+        print(f"logreg {label}: train_s={train_s:.4f} "
+              f"baseline_s={st_u.wall_time_s:.4f} replay_s={st.wall_time_s:.4f} "
+              + " ".join(f"{k}={v}" for k, v in st.counters().items())
+              + f" theoretical_speedup={st.theoretical_speedup:.3f} "
+              f"d_ui={d_ui:.6e} d_us={d_us:.6e} d_ui/d_us={d_ui / d_us:.4e} "
+              f"accuracy w0={acc0:.4f} w*={logreg_accuracy(w_star, ds):.4f} "
+              f"w_U={logreg_accuracy(w_u, ds):.4f} w_I={logreg_accuracy(w_i, ds):.4f} "
+              f"card vs cpu: max |gap| {gap:.3e} (bar {PARITY_TOL}), ||gap||/d_ui "
+              f"{(w_i.flat.cpu() - w_c.flat).norm().item() / d_ui:.3e}, counters "
+              f"equal: {same}; launches {json.dumps(n)}", flush=True)
+        if not (bool(torch.isfinite(w_i.flat).all()) and w_i.numel == L["d"] + 1):
+            fail(f"logreg {label}: replay parameters are not finite of the "
+                 "expected shape")
+        if not (same and gap <= PARITY_TOL):
+            fail(f"logreg {label}: card vs cpu gap {gap:.3e}, counters equal: "
+                 f"{same}")
+        # Theorem 1's direction for the SGD replays.  Its 0.5 is not held at
+        # this shape (d 47,236 > n 20,242): the JAX package's own replay on
+        # this recipe reads 0.35 to 3.62 (delete) at scaled copies of it
+        # (tests/test_torch_models.py, run as a script), and the port's
+        # equals it there to 1e-6.  The heavy-ball replay (the recipe's lr
+        # 0.1, momentum 0.9) is recorded, not held: there the reference
+        # reads 0.81 to 15
+        if not momentum and not d_ui < d_us:
+            fail(f"logreg {label}: d_ui {d_ui:.3e} not below d_us {d_us:.3e}")
+        want = {"fused_update": 0 if momentum else st.approx_steps,
+                "multidot": st.approx_steps, "rank_update": st.approx_steps}
+        for k, v in want.items():
+            if st.approx_steps <= 0 or n[k] != v:
+                fail(f"logreg {label}: {k} launched {n[k]} times for "
+                     f"{st.approx_steps} approx steps")
+        return trained
+
+    trained = run("delete", 0.0, "delete")
+    run("momentum-0.9 delete", 0.9, "delete")
+    run("add", 0.0, "add", trained=trained)  # appends: last
+
+
+def online_phase(torch, np, dev, kernels) -> None:
+    """Phase 11: Algorithm 3 on logistic regression at bench_online.py's
+    paper scale (n 8000, d 4000, T 60, B 4096, lr 0.3, T0 5, j0 10, m 2):
+    8 delete requests, 8 add requests and a heavy-ball (0.9, lr 0.1) delete
+    stream through `online_deltagrad`, each held against the port's CPU run of
+    the same stream, and against BaseL on the changed data; then a
+    host-tier delta_int8 delete stream in kernel mode against fetch mode."""
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core.history import HistoryMeta
+    from repro_torch.core.online import online_deltagrad
+    from repro_torch.data.synthetic import binary_classification
+    from repro_torch.models.simple import logreg_init, logreg_objective
+
+    O = ONLINE
+    obj = logreg_objective(l2=O["l2"])
+    cfg = dg.DeltaGradConfig(period=O["period"], burn_in=O["burn_in"],
+                             history_size=O["m"])
+
+    def stream(where, mode, momentum, tier=None, decode="auto"):
+        ds = binary_classification(O["n"], O["d"], seed=O["seed"])
+        lr = O["momentum_lr"] if momentum else O["lr"]
+        meta = HistoryMeta(n=O["n"], batch_size=O["batch"], seed=7,
+                           steps=O["steps"], lr_schedule=((0, lr),),
+                           momentum=momentum)
+        p0 = logreg_init(O["d"], generator=torch.Generator().manual_seed(1),
+                         device=where)
+        w_star, hist = dg.sgd_train_with_cache(obj, p0, ds, meta, device=where,
+                                               **(tier or {}))
+        src = np.random.default_rng(11).choice(O["n"], O["requests"],
+                                               replace=False)
+        reqs = src.tolist() if mode == "delete" else ds.append(
+            {k: v[src] for k, v in ds.columns.items()}).tolist()
+        c = dataclasses.replace(cfg, stream_window=O["window"] if tier else 0,
+                                stream_decode=decode)
+        (w, st), n = counted_run(kernels, lambda: online_deltagrad(
+            obj, hist, ds, reqs, c, mode=mode, device=where))
+        return dict(ds=ds, meta=meta, p0=p0, w_star=w_star, w=w, st=st,
+                    n=n, reqs=reqs)
+
+    # warm-up, counted as set-up
+    ds_w = binary_classification(600, O["d"], seed=O["seed"])
+    mw = HistoryMeta(n=600, batch_size=256, seed=7, steps=12,
+                     lr_schedule=((0, O["lr"]),))
+    p_w = logreg_init(O["d"], device=dev)
+    _, h_w = dg.sgd_train_with_cache(obj, p_w, ds_w, mw, device=dev)
+    online_deltagrad(obj, h_w, ds_w, [1, 2],
+                     dg.DeltaGradConfig(period=5, burn_in=4), device=dev)
+    del ds_w, h_w
+    for label, mode, momentum in (("delete", "delete", 0.0),
+                                  ("add", "add", 0.0),
+                                  ("momentum-0.9 lr-0.1 delete", "delete", 0.9)):
+        card = stream(dev, mode, momentum)
+        cpu = stream(torch.device("cpu"), mode, momentum)
+        st, n = card["st"], card["n"]
+        per_ms = [s.wall_time_s * 1e3 for s in st.per_request]
+        gap = (card["w"].flat.cpu() - cpu["w"].flat).abs().max().item()
+        same = ([s.counters() for s in st.per_request]
+                == [s.counters() for s in cpu["st"].per_request])
+        w_u, st_u = dg.baseline_retrain(obj, card["ds"], card["meta"],
+                                        card["p0"], card["reqs"], mode=mode,
+                                        device=dev)
+        d_ui = (w_u.flat - card["w"].flat).norm().item()
+        d_us = (w_u.flat - card["w_star"].flat).norm().item()
+        approx = sum(s.approx_steps for s in st.per_request)
+        print(f"online {label}: {len(per_ms)} requests, per-request ms "
+              + ", ".join(f"{x:.3f}" for x in per_ms)
+              + f" (median {statistics.median(per_ms):.3f}) stream_s="
+              f"{st.wall_time_s:.4f} baseline_s={st_u.wall_time_s:.4f} "
+              f"explicit={sum(s.explicit_steps for s in st.per_request)} "
+              f"approx={approx} grad_examples={st.grad_examples} "
+              f"grad_examples_baseline={st.grad_examples_baseline} "
+              f"theoretical_speedup={st.theoretical_speedup:.3f} "
+              f"card vs cpu: max |gap| {gap:.3e} (bar {ONLINE_TOL}), counters "
+              f"equal per request: {same}; d_ui={d_ui:.6e} d_us={d_us:.6e} "
+              f"d_ui/d_us={d_ui / d_us:.4e} launches {json.dumps(n)}", flush=True)
+        if not (same and gap <= ONLINE_TOL):
+            fail(f"online {label}: card vs cpu gap {gap:.3e}, counters equal: {same}")
+        # Theorem 1's bar for the SGD streams; the heavy-ball stream is held
+        # to its direction, as the reference's momentum test holds it
+        bar = 1.0 if momentum else 0.5
+        if not d_ui < bar * d_us:
+            fail(f"online {label}: d_ui {d_ui:.3e} not below {bar} d_us {d_us:.3e}")
+        want = {"fused_update": 0 if momentum else approx,
+                "multidot": approx, "rank_update": approx}
+        for k, v in want.items():
+            if approx <= 0 or n[k] != v:
+                fail(f"online {label}: {k} launched {n[k]} times for "
+                     f"{approx} approx steps")
+        del card, cpu
+    # the host tier under delta_int8: a streamed online delete stream,
+    # kernel mode (the dequant pair) against fetch mode
+    host = dict(tier="host", codec="delta_int8", window=O["window"])
+    runs = {d: stream(dev, "delete", 0.0, tier=host, decode=d)
+            for d in ("kernel", "fetch")}
+    k_run, f_run = runs["kernel"], runs["fetch"]
+    bitwise = (torch.equal(k_run["w"].flat, f_run["w"].flat)
+               and [s.counters() for s in k_run["st"].per_request]
+               == [s.counters() for s in f_run["st"].per_request])
+    approx = sum(s.approx_steps for s in k_run["st"].per_request)
+    print(f"online host/delta_int8 delete: kernel mode "
+          f"stream_s={k_run['st'].wall_time_s:.4f} fetch mode "
+          f"stream_s={f_run['st'].wall_time_s:.4f} bitwise equal: {bitwise} "
+          f"approx={approx} launches kernel {json.dumps(k_run['n'])} "
+          f"fetch {json.dumps(f_run['n'])}", flush=True)
+    if not bitwise:
+        fail("online host/delta_int8: kernel mode is not bitwise fetch mode")
+    for k in ("dequant_update", "dequant_sub", "multidot", "rank_update"):
+        if approx <= 0 or k_run["n"][k] != approx:
+            fail(f"online host/delta_int8 kernel: {k} launched "
+                 f"{k_run['n'][k]} times for {approx} approx steps")
+
+
 def lm_phase(torch, np, dev, kernels, profiled) -> dict:
     """Phase 9: InternLM2-1.8B at full width (2 layers), the flash kernel
     on every forward pass, through the three entry points.  Returns the
@@ -908,6 +1249,7 @@ def lm_phase(torch, np, dev, kernels, profiled) -> dict:
     from repro_torch.core import deltagrad as dg
     from repro_torch.core.history import HistoryMeta
     from repro_torch.data.synthetic import token_stream
+    from repro_torch.core import engine
     from repro_torch.models.registry import build
 
     t_phase = time.perf_counter()
@@ -975,9 +1317,27 @@ def lm_phase(torch, np, dev, kernels, profiled) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     w_u, st_u = dg.baseline_retrain(obj, docs, meta, p0, removed)
-    w_i, st = dg.deltagrad_retrain(obj, hist, docs, removed, dgc)
+    # each B v's ||Bv|| / ||v|| against the guard's clip, read from the
+    # output of the engine's B v (multidot, solve, rank_update) for this
+    # run (device scalars, read after)
+    ratios = []
+    plain_hvp = engine.lbfgs_hvp_fused
+
+    def recording(dW, dG, v, valid=None):
+        out = plain_hvp(dW, dG, v, valid)
+        ratios.append(out.norm() / v.norm())
+        return out
+
+    engine.lbfgs_hvp_fused = recording
+    try:
+        w_i, st = dg.deltagrad_retrain(obj, hist, docs, removed, dgc)
+    finally:
+        engine.lbfgs_hvp_fused = plain_hvp
     n = launches()
     fwd = forwards[0]
+    bv_ratio = [r.item() for r in ratios]
+    print(f"lm f32 host: ||Bv||/||v|| per B v (clip {dgc.guard_norm_clip:g}): "
+          + ", ".join(f"{r:.4e}" for r in bv_ratio), flush=True)
     peak = torch.cuda.max_memory_allocated()
     kernels["flash_attention"]["launches"] = n["flash_attention"]
     d_ui = (w_u.flat - w_i.flat).norm().item()
@@ -995,15 +1355,14 @@ def lm_phase(torch, np, dev, kernels, profiled) -> dict:
           f"forward_passes={fwd} launches {json.dumps(n)}", flush=True)
     if not (bool(torch.isfinite(w_i.flat).all()) and w_i.numel == LM["n_params"]):
         fail("lm: replay parameters are not finite of the expected shape")
-    # at this recipe DeltaGrad lands farther from BaseL than the original
-    # model does, under the flash kernel and under blockwise attention alike
-    # (PERF.md section 6): a finding about the recipe, not a fault of the
-    # port, so the run is held to its card-vs-CPU parity (phase 7, the
-    # reduced LM) and to finite parameters, not to d_ui < d_us
-    if not np.isfinite(d_ui):
-        fail(f"lm: d_ui {d_ui} is not finite")
-    print(f"lm f32 host: finding: d_ui/d_us = {d_ui / d_us:.4e} "
-          f"({'below' if d_ui < d_us else 'not below'} 1; Theorem 1's bar)",
+    # Theorem 1's direction: the replay lands closer to BaseL than the
+    # original model.  The MLP's bar of d_us / 2 is not met on this recipe
+    # (PERF.md section 7), so it is printed, not held; the run is also held
+    # to its card-vs-CPU parity (phase 7, the reduced LM)
+    if not d_ui < d_us:
+        fail(f"lm: d_ui {d_ui:.3e} not below d_us {d_us:.3e}")
+    print(f"lm f32 host: d_ui/d_us = {d_ui / d_us:.4e} (held below 1; "
+          f"{'below' if d_ui < 0.5 * d_us else 'not below'} the MLP's 0.5)",
           flush=True)
     if not n["flash_attention"] == LM["layers"] * fwd > 0:
         fail(f"lm: flash launched {n['flash_attention']} times for {fwd} "

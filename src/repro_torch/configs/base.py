@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family ported)
+    family: str  # dense (the only LM family ported), or simple (models.simple)
     n_layers: int
     d_model: int
     n_heads: int

@@ -9,7 +9,7 @@ from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {}
 
-_ARCH_MODULES = ["internlm2_1_8b"]
+_ARCH_MODULES = ["internlm2_1_8b", "paper_logreg"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -18,7 +18,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    if not ARCHS:
+    if name not in ARCHS:  # a module imported directly registers only itself
         for mod in _ARCH_MODULES:
             importlib.import_module(f"repro_torch.configs.{mod}")
     return ARCHS[name]

@@ -29,6 +29,26 @@ Mapping to Wu et al., ICML 2020 (and to the JAX package's `core.engine`):
             (a lossy codec in kernel mode) feeds the approx step through
             `kernels.dequant_update`: dequant_sub gives v = w - w_t and
             dequant_update the step, each decoding its row in registers.
+  MOMENTUM  heavy-ball histories (``meta.momentum``): vel <- mom vel + g,
+            w <- w - lr vel, in training, BaseL and the replay, with the
+            velocity rebuilt from vel_0 = 0 (the cache stores plain
+            gradients).  The momentum approx step is plain tensor math, as
+            in the reference; its B v still runs the `kernels.lbfgs` pair.
+  ONLINE    `run_online_request`: Algorithm 3 (Appendix C.2), one delete or
+            add request (a row or a group of rows) against the current
+            cached path, which it rewrites: explicit steps w_t <- w^I_t,
+            g_t <- the exact post-request gradient; approx steps g_t <- the
+            approximated gradient (eq. (S62)).  The L-BFGS pairs live in a
+            zeros-initialised (m, p) device ring from step 0: every explicit
+            step appends its pair where the admission check passes
+            (`_ring_append`, on the device), and approx steps solve over
+            the occupied slots (`core.lbfgs.compact_coeffs_masked`), so a
+            request reads no scalar back per explicit step (guard off).
+            An SGD approx step runs `kernels.fused_update` (on an encoded
+            window `kernels.dequant_update`) in its estimate form: one pass
+            writes both the rewritten g_t and the step taken with it.
+            Rewrites are kept until the request ends and land in one
+            `store.commit` (each step reads only its original row).
 
 Parameters are one flat f32 buffer (`utils.tree.FlatParams`, the order of
 jax's ``ravel_pytree``), so each kernel runs once per step over all of p.
@@ -47,9 +67,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.history import HistoryMeta, TrainingHistory
-from repro_torch.core.lbfgs import LbfgsBuffer
+from repro_torch.core.lbfgs import LbfgsBuffer, ring_valid_mask
 from repro_torch.core.store import (EncodedWindow, HistoryStore,
-                                   SegmentStreamer, auto_window)
+                                   SegmentStreamer, auto_window, decode_row)
 from repro_torch.data.dataset import Dataset
 from repro_torch.data.sampler import (ReplaySchedule, batch_indices_all,
                                       build_schedule)
@@ -94,6 +114,9 @@ class DeltaGradConfig:
     curvature_eps: float = 0.0  # pair admission threshold (Alg. 4 guard)
     guard: bool = False  # enable non-convex fallback checks
     guard_norm_clip: float = 1e4  # fallback if ||Bv|| > clip * ||v||
+    # width of the changed-row block per step; 0 -> the next power of two
+    # of min(r, B), which holds every step's overlap
+    removal_pad: int = 0
     # steps per device window when the history lives on an offload tier
     # (served by core.store.SegmentStreamer); 0 -> auto
     stream_window: int = 0
@@ -108,6 +131,9 @@ class DeltaGradConfig:
                              f"kernels' range), got {self.history_size}")
         if self.period < 1:
             raise ValueError(f"period must be >= 1, got {self.period}")
+        if self.removal_pad < 0:
+            raise ValueError(f"removal_pad must be >= 0 (0: automatic), got "
+                             f"{self.removal_pad}")
 
     def is_explicit(self, t: int) -> bool:
         if t <= self.burn_in:
@@ -150,16 +176,22 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1)).bit_length()
 
 
-def build_plan(cfg: DeltaGradConfig, sched: ReplaySchedule) -> np.ndarray:
+def build_plan(cfg: DeltaGradConfig, sched: ReplaySchedule,
+               online: bool = False) -> np.ndarray:
     """Per-step codes.  SKIP (an emptied batch under deletion, paper §3)
-    takes precedence over the explicit/approx cadence."""
+    takes precedence over the explicit/approx cadence.  A batch replay
+    skips every emptied batch; an online request only where the REQUEST
+    row sits in a batch whose other rows are all gone (kept == 0 and
+    dB > 0), Algorithm 3's condition: other empty batches still run, as
+    steps on the l2 term alone."""
     T = sched.steps
     codes = np.full(T, APPROX, dtype=np.int8)
     for t in range(T):
         if cfg.is_explicit(t):
             codes[t] = EXPLICIT
     if sched.mode == "delete":
-        codes[sched.kept <= 0] = SKIP
+        empty = sched.kept <= 0
+        codes[empty & (sched.dB > 0) if online else empty] = SKIP
     return codes
 
 
@@ -185,10 +217,28 @@ def _gather(cols: Dict[str, torch.Tensor], rows: torch.Tensor):
     return {k: c[rows] for k, c in cols.items()}
 
 
-def _check_plain_sgd(meta: HistoryMeta) -> None:
-    if meta.momentum:
-        raise NotImplementedError(
-            "momentum is not ported yet; this slice replays plain SGD/GD")
+# --------------------------------------------------------------------------
+# Update math (one definition for training, BaseL, the replay and online)
+# --------------------------------------------------------------------------
+
+
+def _step(w: torch.Tensor, vel: Optional[torch.Tensor], g: torch.Tensor,
+          lr: float, mom: float) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """SGD (``vel`` None) or heavy-ball: vel <- mom vel + g; w <- w - lr vel."""
+    if vel is None:
+        return w - lr * g, None
+    vel = mom * vel + g
+    return w - lr * vel, vel
+
+
+def _approx_math(g_t: torch.Tensor, bv: torch.Tensor, g_changed: torch.Tensor,
+                 B: float, dB: float, sign: int) -> torch.Tensor:
+    """Paper eq. (2)/(S7): the leave-r-out (add-r) gradient estimate
+    (B (g_t + Bv) - sign dB g_c) / max(B - sign dB, 1), as a tensor, for
+    the heavy-ball step (the SGD step goes through `kernels.fused_update`,
+    which also returns this estimate where the online request needs it)."""
+    denom = max(B - sign * dB, 1.0)
+    return (B * (g_t + bv) - (sign * dB) * g_changed) / denom
 
 
 # --------------------------------------------------------------------------
@@ -201,14 +251,14 @@ def run_training(objective, params0: FlatParams, ds: Dataset,
                  codec: str = "f32", spill_dir: Optional[str] = None,
                  window: int = 0, spill_window: Optional[int] = None
                  ) -> Tuple[FlatParams, TrainingHistory]:
-    """Train w_t by plain SGD (the paper's optimizer), caching (w_t, g_t).
+    """Train w_t by SGD (the paper's optimizer; heavy-ball when
+    ``meta.momentum``), caching (w_t, g_t).
 
     ``stacked``: in two (T, p) f32 buffers on `device`.  ``host`` /
     ``disk``: through `codec`, one window of `window` steps (0: auto) at a
     time; the disk tier writes one .npz per `spill_window` steps (None:
     the window)."""
     dev = resolve_device(device)
-    _check_plain_sgd(meta)
     L = auto_window(meta.steps, window)
     if spill_window is None:
         spill_window = L if tier == "disk" else 0
@@ -227,13 +277,15 @@ def run_training(objective, params0: FlatParams, ds: Dataset,
         history.set_layout(params.shapes, dev)
     W = torch.empty((L, params.numel), device=dev)
     G = torch.empty_like(W)
+    vel = torch.zeros_like(params.flat) if meta.momentum else None
     for a in range(0, meta.steps, L):
         b = min(meta.steps, a + L)
         for t in range(a, b):
             g = grad_fn(params, _gather(cols, idx[t]), ones)
             W[t - a] = params.flat
             G[t - a] = g
-            params = params.with_flat(params.flat - meta.lr_at(t) * g)
+            new, vel = _step(params.flat, vel, g, meta.lr_at(t), meta.momentum)
+            params = params.with_flat(new)
         if tier != "stacked":  # the window goes to the host, through the codec
             host_w, host_g = W[:b - a].cpu().numpy(), G[:b - a].cpu().numpy()
             for i in range(b - a):
@@ -260,7 +312,6 @@ def run_baseline(objective, ds: Dataset, meta: HistoryMeta,
     if mode not in ("delete", "add"):
         raise ValueError(f"mode must be 'delete' or 'add', got {mode!r}")
     dev = resolve_device(device)
-    _check_plain_sgd(meta)
     changed_idx = np.asarray(changed_idx, dtype=np.int64)
     grad_fn = objective.make_grad_fn()
     stats = RetrainStats()
@@ -284,11 +335,13 @@ def run_baseline(objective, ds: Dataset, meta: HistoryMeta,
     else:
         rows_all, w_all = sd.idx, sd.kept_w
     params = params0.to(dev)
+    vel = torch.zeros_like(params.flat) if meta.momentum else None
     for t in range(meta.steps):
         if mode == "delete" and sched.kept[t] <= 0:
             continue  # the whole batch was deleted: no update
         g = grad_fn(params, _gather(cols, rows_all[t]), w_all[t])
-        params = params.with_flat(params.flat - float(sched.lr[t]) * g)
+        new, vel = _step(params.flat, vel, g, float(sched.lr[t]), meta.momentum)
+        params = params.with_flat(new)
     _sync(dev)
     stats.wall_time_s = time.perf_counter() - t0
     return params, stats
@@ -299,20 +352,23 @@ def run_baseline(objective, ds: Dataset, meta: HistoryMeta,
 # --------------------------------------------------------------------------
 
 
-class _Replay:
-    """The state one `run_replay` call shares between its steps."""
+class _Steps:
+    """What every step of one replay or online request reads: the gradient
+    function, the history's store, the device columns and the schedule
+    (numpy for the host's scalars, `DeviceSchedule` for the rows)."""
 
-    def __init__(self, objective, store: HistoryStore, cols, sd, sched,
-                 plan, cfg: DeltaGradConfig, B: int, sign: int,
-                 stats: RetrainStats):
-        self.grad_fn = objective.make_grad_fn()
-        self.store, self.cols, self.sd, self.sched = store, cols, sd, sched
-        self.plan, self.cfg, self.B, self.sign = plan, cfg, B, sign
-        self.stats = stats
-        self.buffer = LbfgsBuffer(cfg.history_size,
-                                  curvature_eps=cfg.curvature_eps)
+    def __init__(self, grad_fn, store: HistoryStore, cols, sched, dev,
+                 momentum: float):
+        self.grad_fn, self.store, self.cols = grad_fn, store, cols
+        self.sched, self.sd = sched, to_device(sched, dev)
+        self.sign = 1 if sched.mode == "delete" else -1
+        self.mom = float(momentum)
         self._zeros: Optional[torch.Tensor] = None
         self._true: Optional[torch.Tensor] = None
+
+    def zero_vel(self, params: FlatParams) -> Optional[torch.Tensor]:
+        """vel_0 = 0 for a heavy-ball history, None for plain SGD."""
+        return torch.zeros_like(params.flat) if self.mom else None
 
     def changed_grad(self, params: FlatParams, t: int) -> torch.Tensor:
         """Gradient over step t's changed rows; exact zeros when none of
@@ -324,15 +380,44 @@ class _Replay:
             self._zeros = torch.zeros_like(params.flat)
         return self._zeros
 
-    def explicit_step(self, params: FlatParams, t: int) -> FlatParams:
+    def kept_grad(self, params: FlatParams, t: int) -> torch.Tensor:
+        return self.grad_fn(params, _gather(self.cols, self.sd.idx[t]),
+                            self.sd.kept_w[t])
+
+    def true_flag(self, params: FlatParams) -> torch.Tensor:
+        """The guard flag of a SKIP step, which leaves everything as is."""
+        if self._true is None:
+            self._true = torch.ones((), dtype=torch.bool,
+                                    device=params.flat.device)
+        return self._true
+
+    @staticmethod
+    def rows(W, G, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Row i of a window as f32 (an encoded one decoded on its own)."""
+        if isinstance(W, EncodedWindow):
+            return decode_row(W, i), decode_row(G, i)
+        return W[i], G[i]
+
+
+class _Replay(_Steps):
+    """The state one `run_replay` call shares between its steps."""
+
+    def __init__(self, objective, store: HistoryStore, cols, sched, dev,
+                 plan, cfg: DeltaGradConfig, B: int, stats: RetrainStats):
+        super().__init__(objective.make_grad_fn(), store, cols, sched, dev,
+                         store.history.meta.momentum)
+        self.plan, self.cfg, self.B = plan, cfg, B
+        self.stats = stats
+        self.buffer = LbfgsBuffer(cfg.history_size,
+                                  curvature_eps=cfg.curvature_eps)
+
+    def explicit_step(self, params: FlatParams, vel, t: int):
         """One explicit step (the JAX engine's `_host_explicit_step` and
         `_explicit_step`): kept and changed gradients, the pair with its
-        two admission inner products (one host sync), the SGD update."""
+        two admission inner products (one host sync), the update."""
         k, dB, B = float(self.sched.kept[t]), float(self.sched.dB[t]), self.B
-        lr = float(self.sched.lr[t])
         w_t, g_t = self.store.entry(t)
-        g_kept = self.grad_fn(params, _gather(self.cols, self.sd.idx[t]),
-                              self.sd.kept_w[t])
+        g_kept = self.kept_grad(params, t)
         g_changed = self.changed_grad(params, t)
         if self.sign > 0:  # delete: the pair's gradient is over the ORIGINAL batch
             g_full = (k * g_kept + dB * g_changed) / B
@@ -347,14 +432,18 @@ class _Replay:
             self.stats.pairs_rejected += 1
         self.stats.grad_examples += int(k + dB)
         self.stats.explicit_steps += 1
-        return params.with_flat(params.flat - lr * g_step)
+        new, vel = _step(params.flat, vel, g_step, float(self.sched.lr[t]),
+                         self.mom)
+        return params.with_flat(new), vel
 
-    def segment(self, params: FlatParams, a: int, b: int
-                ) -> Tuple[FlatParams, Optional[torch.Tensor]]:
+    def segment(self, params: FlatParams, vel, a: int, b: int):
         """Approx steps [a, b) on the device, no host sync (the JAX
         engine's `_replay_segment_impl`, as a Python loop).  Returns the
-        parameters and, with the guard on, one device flag per step (True
-        on SKIP steps, which leave the parameters as they are)."""
+        parameters, the velocity and, with the guard on, one device flag
+        per step (True on SKIP steps, which leave the parameters as they
+        are).  Plain SGD updates through `kernels.fused_update` (or, on an
+        encoded window, `kernels.dequant_update`); heavy-ball through
+        `_approx_math`."""
         W, G, off = self.store.window(a, b)
         encoded = isinstance(W, EncodedWindow)
         dW, dG = self.buffer.stacked()
@@ -363,31 +452,37 @@ class _Replay:
         for t in range(a, b):
             if self.plan[t] == SKIP:  # deletion emptied the batch: no update
                 if guard:
-                    if self._true is None:
-                        self._true = torch.ones((), dtype=torch.bool,
-                                                device=params.flat.device)
-                    flags.append(self._true)
+                    flags.append(self.true_flag(params))
                 continue
             g_changed = self.changed_grad(params, t)
             lr, dB = float(self.sched.lr[t]), float(self.sched.dB[t])
-            if encoded:  # decode w_t and g_t in the kernels' registers
-                q, scale, base = W.row(t - off)
+            i = t - off
+            if vel is not None:  # heavy-ball: the estimate, then the step
+                w_t, g_t = self.rows(W, G, i)
+                v = params.flat - w_t
+                bv = lbfgs_hvp_fused(dW, dG, v)
+                g_est = _approx_math(g_t, bv, g_changed, self.B, dB, self.sign)
+                new, vel = _step(params.flat, vel, g_est, lr, self.mom)
+                finite = tree_all_finite(g_est)
+            elif encoded:  # decode w_t and g_t in the kernels' registers
+                q, scale, base = W.row(i)
                 v = dequant_sub(params.flat, q, scale, W.bounds, base)
                 bv = lbfgs_hvp_fused(dW, dG, v)
-                q, scale, base = G.row(t - off)
+                q, scale, base = G.row(i)
                 new = dequant_update(params.flat, q, bv, g_changed, lr,
                                      self.B, dB, self.sign, scale, G.bounds,
                                      base)
+                finite = tree_all_finite(new)
             else:
-                v = params.flat - W[t - off]
+                v = params.flat - W[i]
                 bv = lbfgs_hvp_fused(dW, dG, v)
-                new = fused_update(params.flat, G[t - off], bv, g_changed,
+                new = fused_update(params.flat, G[i], bv, g_changed,
                                    lr, self.B, dB, self.sign)
+                finite = tree_all_finite(new)
             if guard:
-                flags.append(tree_all_finite(new)
-                             & (tree_norm(bv) <= clip * tree_norm(v)))
+                flags.append(finite & (tree_norm(bv) <= clip * tree_norm(v)))
             params = params.with_flat(new)
-        return params, (torch.stack(flags) if guard and flags else None)
+        return params, vel, (torch.stack(flags) if guard and flags else None)
 
 
 def run_replay(objective, history: TrainingHistory, ds: Dataset,
@@ -405,7 +500,6 @@ def run_replay(objective, history: TrainingHistory, ds: Dataset,
     if history.device.type != dev.type:
         raise ValueError(f"history lives on {history.device}, replay asked "
                          f"for {dev}")
-    _check_plain_sgd(history.meta)
     changed_idx = np.asarray(changed_idx, dtype=np.int64)
     store = HistoryStore.create(history, window=cfg.stream_window,
                                 decode=cfg.stream_decode)
@@ -423,19 +517,20 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
     meta = history.meta
     r = len(changed_idx)
     B = min(meta.batch_size, meta.n)
-    sign = 1 if mode == "delete" else -1
-    r_pad = _next_pow2(max(1, min(r, B)))  # room for every changed row
+    # room for every changed row, unless the caller fixes the width
+    r_pad = cfg.removal_pad or _next_pow2(max(1, min(r, B)))
     stats = RetrainStats()
 
     t_start = time.perf_counter()
     sched = build_schedule(meta.seed, meta.steps, meta.n, meta.batch_size,
                            changed_idx, mode, r_pad, meta.lr_at)
     plan = build_plan(cfg, sched)
-    rp = _Replay(objective, store, ds.device_columns(dev), to_device(sched, dev),
-                 sched, plan, cfg, B, sign, stats)
+    rp = _Replay(objective, store, ds.device_columns(dev), sched, dev, plan,
+                 cfg, B, stats)
     if params0 is None:  # w_0, read through the store like every row
         params0 = FlatParams(store.entry(0)[0].clone(), history.shapes)
     params = params0.to(dev)
+    vel = rp.zero_vel(params)
     T = meta.steps
     seg_flags: List[Tuple[int, int, Optional[np.ndarray]]] = []
 
@@ -443,7 +538,7 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
     while t < T:
         code = plan[t]
         if code == EXPLICIT or (code == APPROX and len(rp.buffer) == 0):
-            params = rp.explicit_step(params, t)
+            params, vel = rp.explicit_step(params, vel, t)
             t += 1
         elif code == SKIP and len(rp.buffer) == 0:
             t += 1
@@ -453,8 +548,8 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
                 t2 += 1
             while t < t2:
                 b = store.span_end(t, t2)
-                p_in = params
-                params, flags = rp.segment(p_in, t, b)
+                p_in, v_in = params, vel
+                params, vel, flags = rp.segment(p_in, v_in, t, b)
                 oks = None if flags is None else flags.cpu().numpy()
                 if cfg.guard and oks is not None:
                     # one host sync per segment: if a step tripped the
@@ -465,12 +560,12 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
                     if fell.size:
                         tf = t + int(fell[0])
                         if tf > t:
-                            params, flags_p = rp.segment(p_in, t, tf)
+                            params, vel, flags_p = rp.segment(p_in, v_in, t, tf)
                             seg_flags.append((t, tf, flags_p.cpu().numpy()))
                         else:
-                            params = p_in
+                            params, vel = p_in, v_in
                         stats.guard_fallbacks += 1
-                        params = rp.explicit_step(params, tf)
+                        params, vel = rp.explicit_step(params, vel, tf)
                         t = tf + 1
                         continue
                 seg_flags.append((t, b, oks))
@@ -505,4 +600,215 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
     if history.tier == "disk":
         stats.extra.update(spill_io_read_s=history.io_read_s,
                            spill_io_write_s=history.io_write_s)
+    return params, stats
+
+
+# --------------------------------------------------------------------------
+# ONLINE: Algorithm 3, one request with the history rewrite
+# --------------------------------------------------------------------------
+
+
+def _ring_append(dW: torch.Tensor, dG: torch.Tensor, dw: torch.Tensor,
+                 dg: torch.Tensor, admit: torch.Tensor, eps: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shift-append (dw, dg) to the newest-last (m, p) ring where the
+    admission check ``<dg, dw> >= eps <dw, dw>`` and ``<dw, dw> > 0`` holds,
+    resolved on the device (`admit` = [<dg, dw>, <dw, dw>]): a rejected
+    pair leaves the ring as it was, and empty slots stay exact zeros."""
+    ok = (admit[1] > 0.0) & (admit[0] >= eps * admit[1])
+    dW = torch.where(ok, torch.cat([dW[1:], dw[None]]), dW)
+    dG = torch.where(ok, torch.cat([dG[1:], dg[None]]), dG)
+    return dW, dG
+
+
+class _Online(_Steps):
+    """The state of one online request: `_Steps`, the device pair ring and
+    the deferred rewrites {t: (w_t, g_t)}."""
+
+    def __init__(self, grad_fn, store: HistoryStore, cols, sched, dev,
+                 plan, cfg: DeltaGradConfig, params: FlatParams):
+        super().__init__(grad_fn, store, cols, sched, dev,
+                         store.history.meta.momentum)
+        self.plan, self.cfg = plan, cfg
+        self.dW = torch.zeros((cfg.history_size, params.numel),
+                              device=params.flat.device)
+        self.dG = torch.zeros_like(self.dW)
+        self.rewrites: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def explicit_step(self, params: FlatParams, vel, t: int):
+        """The reference's `_online_explicit_fused`: the gradients over the
+        scheduled kept rows (g_base: the post-request batch for a delete,
+        the pre-request one for an add) and the request rows (g_one), the
+        pair against the PRE-request gradient appended to the ring on the
+        device, the update with the POST-request gradient, which is also
+        the rewrite of g_t."""
+        kept, dB = float(self.sched.kept[t]), float(self.sched.dB[t])
+        w_t, g_t = self.store.entry(t)
+        g_base = self.kept_grad(params, t)
+        g_one = self.changed_grad(params, t)
+        mix = (kept * g_base + dB * g_one) / max(kept + dB, 1.0) if dB > 0 \
+            else g_base
+        g_cur, g_prev = (g_base, mix) if self.sign > 0 else (mix, g_base)
+        dw = params.flat - w_t
+        dg = g_prev - g_t
+        admit = torch.stack([tree_vdot(dg, dw), tree_vdot(dw, dw)])
+        self.dW, self.dG = _ring_append(self.dW, self.dG, dw, dg, admit,
+                                        self.cfg.curvature_eps)
+        self.rewrites[t] = (params.flat, g_cur)
+        new, vel = _step(params.flat, vel, g_cur, float(self.sched.lr[t]),
+                         self.mom)
+        return params.with_flat(new), vel
+
+    def segment(self, params: FlatParams, vel, a: int, b: int):
+        """Approx steps [a, b) on the device, no host sync (the reference's
+        `_online_segment_impl`).  Each step's batch size is its own
+        (B_t = kept + dB before a delete, kept before an add: Algorithm 3's
+        n - k bookkeeping), B v solves over the ring's occupied slots, and
+        the rewrite is (w^I_t, the estimated gradient): on an SGD step the
+        update kernel's second output, so the rewritten g_t is the one the
+        step took.  Returns the
+        parameters, the velocity, the rewrites and, with the guard on, one
+        flag per step; the caller keeps the rewrites of an accepted
+        segment only.  SKIP steps change nothing and rewrite nothing."""
+        W, G, off = self.store.window(a, b)
+        encoded = isinstance(W, EncodedWindow)
+        valid = ring_valid_mask(self.dW)
+        guard, clip = self.cfg.guard, float(self.cfg.guard_norm_clip)
+        flags: List[torch.Tensor] = []
+        rewrites: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        for t in range(a, b):
+            if self.plan[t] == SKIP:
+                if guard:
+                    flags.append(self.true_flag(params))
+                continue
+            g_one = self.changed_grad(params, t)
+            lr, kept, dB = (float(self.sched.lr[t]), float(self.sched.kept[t]),
+                            float(self.sched.dB[t]))
+            b_prev = kept + dB if self.sign > 0 else kept
+            i = t - off
+            if vel is not None:  # heavy-ball: the estimate, then the step
+                w_t, g_t = self.rows(W, G, i)
+                v = params.flat - w_t
+                bv = lbfgs_hvp_fused(self.dW, self.dG, v, valid)
+                g_new = _approx_math(g_t, bv, g_one, b_prev, dB, self.sign)
+                new, vel = _step(params.flat, vel, g_new, lr, self.mom)
+            elif encoded:  # decode w_t and g_t in the kernels' registers
+                q, scale, base = W.row(i)
+                v = dequant_sub(params.flat, q, scale, W.bounds, base)
+                bv = lbfgs_hvp_fused(self.dW, self.dG, v, valid)
+                q, scale, base = G.row(i)
+                new, g_new = dequant_update(params.flat, q, bv, g_one, lr,
+                                            b_prev, dB, self.sign, scale,
+                                            G.bounds, base, with_g=True)
+            else:
+                v = params.flat - W[i]
+                bv = lbfgs_hvp_fused(self.dW, self.dG, v, valid)
+                new, g_new = fused_update(params.flat, G[i], bv, g_one, lr,
+                                          b_prev, dB, self.sign, with_g=True)
+            if guard:
+                flags.append(tree_all_finite(new)
+                             & (tree_norm(bv) <= clip * tree_norm(v)))
+            rewrites[t] = (params.flat, g_new)
+            params = params.with_flat(new)
+        return (params, vel, rewrites,
+                torch.stack(flags) if guard and flags else None)
+
+
+def run_online_request(grad_fn, store: HistoryStore, cols,
+                       sched: ReplaySchedule, cfg: DeltaGradConfig
+                       ) -> Tuple[FlatParams, RetrainStats]:
+    """One online request (a row or a group of rows; delete or add, as
+    ``sched.mode`` says) against the current cached path, served through
+    `store`, whose history it rewrites (`store.commit`) before returning.
+
+    `sched` comes from `data.sampler.build_online_schedule`; the caller
+    (`core.online.OnlineEngine`) owns the stream's state.  The L-BFGS pairs
+    live in the request's zeros-initialised device ring from step 0 (the
+    module note), so with the guard off the request reads nothing back
+    from the device before its end; with the guard on, one flag vector per
+    approx segment, as in `run_replay`.  A heavy-ball history replays with
+    the velocity rebuilt from vel_0 = 0, and the cache keeps storing plain
+    gradients, so every request is self-contained."""
+    history = store.history
+    meta = history.meta
+    dev = history.device
+    t_start = time.perf_counter()
+    plan = build_plan(cfg, sched, online=True)
+    params = FlatParams(store.entry(0)[0].clone(), history.shapes)  # w_0 stays
+    on = _Online(grad_fn, store, cols, sched, dev, plan, cfg, params)
+    vel = on.zero_vel(params)
+    stats = RetrainStats()
+    T = meta.steps
+    seg_flags: List[Tuple[int, int, Optional[np.ndarray]]] = []
+    ring_started = False  # the first step that is not skipped is explicit
+
+    def explicit(params, vel, t):
+        nonlocal ring_started
+        ring_started = True
+        stats.grad_examples += int(sched.kept[t] + sched.dB[t])
+        stats.explicit_steps += 1
+        return on.explicit_step(params, vel, t)
+
+    t = 0
+    while t < T:
+        code = plan[t]
+        if code == EXPLICIT or (code == APPROX and not ring_started):
+            params, vel = explicit(params, vel, t)
+            t += 1
+        elif code == SKIP and not ring_started:
+            t += 1  # the entry stays as it is
+        else:
+            t2 = t
+            while t2 < T and plan[t2] != EXPLICIT:
+                t2 += 1
+            while t < t2:
+                b = store.span_end(t, t2)
+                p_in, v_in = params, vel
+                params, vel, rw, flags = on.segment(p_in, v_in, t, b)
+                oks = None if flags is None else flags.cpu().numpy()
+                if cfg.guard and oks is not None:
+                    # as in `run_replay`: the tripped step runs explicitly
+                    # (admitting its pair and rewriting the exact gradient),
+                    # and the failed segment's rewrites are dropped
+                    fell = np.flatnonzero((plan[t:b] != SKIP) & ~oks)
+                    if fell.size:
+                        tf = t + int(fell[0])
+                        if tf > t:
+                            params, vel, rw, flags_p = on.segment(p_in, v_in,
+                                                                  t, tf)
+                            on.rewrites.update(rw)
+                            seg_flags.append((t, tf, flags_p.cpu().numpy()))
+                        else:
+                            params, vel = p_in, v_in
+                        stats.guard_fallbacks += 1
+                        params, vel = explicit(params, vel, tf)
+                        t = tf + 1
+                        continue
+                on.rewrites.update(rw)
+                seg_flags.append((t, b, oks))
+                t = b
+
+    store.commit(on.rewrites, final_params=params)
+    for t0_, t1_, oks in seg_flags:
+        nonskip = plan[t0_:t1_] != SKIP
+        if cfg.guard and oks is not None:
+            stats.approx_steps += int((nonskip & oks).sum())
+        else:
+            stats.approx_steps += int(nonskip.sum())
+        stats.grad_examples += int(
+            sched.dB[t0_:t1_].astype(np.int64)[nonskip].sum())
+    stats.skipped_steps = int((plan == SKIP).sum())
+    base = sched.kept.astype(np.int64)
+    if sched.mode == "add":
+        base = base + sched.dB.astype(np.int64)
+    stats.grad_examples_baseline = int(base.sum())
+    _sync(dev)
+    stats.wall_time_s = time.perf_counter() - t_start
+    stats.extra.update(store=store.kind, hbm_high_water=store.hbm_high_water(),
+                       segments=max(1, len(seg_flags)), device=str(dev))
+    if isinstance(store, SegmentStreamer):
+        stats.extra.update(windows=store.windows_fetched,
+                           stream_decode=store.decode_mode)
+    if ring_started:  # the end-of-request pair ring, for stream snapshots
+        stats.extra["lbfgs_ring"] = (on.dW, on.dG)
     return params, stats

@@ -59,7 +59,7 @@ class HistoryMeta:
     seed: int  # sampler seed
     steps: int  # T
     lr_schedule: Tuple[Tuple[int, float], ...]  # piecewise-constant (from_step, lr)
-    momentum: float = 0.0  # heavy-ball; not ported yet (the engine raises)
+    momentum: float = 0.0  # heavy-ball: vel <- mom vel + g; w <- w - lr vel
 
     def lr_at(self, t: int) -> float:
         lr = self.lr_schedule[0][1]
@@ -417,6 +417,64 @@ class TrainingHistory:
         scale = None if e.scale is None else torch.from_numpy(e.scale).to(dev)
         b = None if base is None else torch.from_numpy(base).to(dev)
         return dequant_ref(q, scale, self.bounds, b)
+
+    # -- in-place rewrite (online requests, Algorithm 3) ------------------------
+
+    def overwrite(self, t: int, w, g) -> None:
+        """Replace entry t with rows (p,) of w_t, g_t (tensors or numpy).
+        Stacked: written into the (T, p) tensors in place.  Host and disk:
+        encoded again through the codec, a delta codec against the entry's
+        own keyframe (bases never change, so a rewrite stays local); the
+        disk tier writes the entry's window file back."""
+        if not 0 <= t < len(self):
+            raise IndexError(f"history entry {t} of {len(self)}")
+        if self.tier == "stacked":
+            self.W[t] = torch.as_tensor(w, device=self.W.device)
+            self.G[t] = torch.as_tensor(g, device=self.G.device)
+            return
+
+        def host(x) -> np.ndarray:
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu().numpy()
+            return np.asarray(x, dtype=np.float32)
+
+        w, g = host(w), host(g)
+        bounds = self.bounds
+        if self.is_delta:
+            bw, bg = self._base_for(t)
+            pair = (self.codec.encode_delta(w, bw, bounds),
+                    self.codec.encode_delta(g, bg, bounds))
+        else:
+            pair = (self.codec.encode(w, bounds), self.codec.encode(g, bounds))
+        if self.tier == "host":
+            self._enc[t] = pair
+            return
+        if t >= self._spill_flushed:  # still buffered, not yet on disk
+            self._spill_buf[t - self._spill_flushed] = pair
+            return
+        wid, off = divmod(t, self.spill_window)
+        with self._disk_lock:
+            entries = list(self._load_win(wid))
+            entries[off] = pair
+            self._write_win(wid, entries)
+            self._win_cache = (wid, entries)
+
+    def replace_from_stacked(self, W: torch.Tensor, G: torch.Tensor,
+                             final_params: Optional[FlatParams] = None) -> None:
+        """Rewrite the whole cache from (T, p) rows; with `final_params`,
+        finalize the post-request model in the same call.  Stacked: adopts
+        (W, G) as its tensors; host and disk: every entry through
+        `overwrite`."""
+        if W.shape != G.shape or W.dim() != 2 or W.shape[0] != len(self):
+            raise ValueError(f"W {tuple(W.shape)} and G {tuple(G.shape)} "
+                             f"must be equal ({len(self)}, p)")
+        if self.tier == "stacked":
+            self.W, self.G = W, G
+        else:
+            for t in range(W.shape[0]):
+                self.overwrite(t, W[t], G[t])
+        if final_params is not None:
+            self.finalize(final_params)
 
     def stacked_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.tier != "stacked" or self.W is None:

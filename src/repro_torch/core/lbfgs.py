@@ -53,6 +53,42 @@ def compact_coeffs(sw: torch.Tensor, sy: torch.Tensor, wv: torch.Tensor,
     return CompactCoeffs(sigma=sigma, a=sigma * q[:m], b=q[m:])
 
 
+def ring_valid_mask(dW: torch.Tensor) -> torch.Tensor:
+    """(m,) bool on dW's device: slot i holds an admitted pair iff its dw
+    row is nonzero anywhere.  Sound for the online engine's ring, which
+    starts as exact zeros and admits only pairs with ``<dw, dw> > 0``, so
+    no count crosses to the host."""
+    return (dW != 0).any(dim=1)
+
+
+def compact_coeffs_masked(sw: torch.Tensor, sy: torch.Tensor,
+                          wv: torch.Tensor, gv: torch.Tensor,
+                          valid: torch.Tensor) -> CompactCoeffs:
+    """`compact_coeffs` over a partially filled ring whose empty slots are
+    exact zeros (`ring_valid_mask`).
+
+    Every Gram entry that touches an empty slot is then 0, and the 2m x 2m
+    system decouples: a 1 on the diagonal of the empty rows makes them
+    ``e_i`` with a zero right-hand side, so their coefficients solve to
+    exactly 0 and the occupied block is untouched.  With every slot valid
+    the system is ``compact_coeffs``'s, bit for bit.  An empty ring gives
+    sigma = 0/1 = 0 and B v = 0."""
+    m = sw.shape[0]
+    diag_sy = torch.diagonal(sy)
+    last = sw[-1, -1]
+    sigma = diag_sy[-1] / torch.where(last == 0, torch.ones_like(last), last)
+    ell = torch.tril(sy, diagonal=-1)
+    top = torch.cat([sigma * sw, ell], dim=1)
+    bot = torch.cat([ell.T, -torch.diag(diag_sy)], dim=1)
+    mid = torch.cat([top, bot], dim=0)
+    valid2 = torch.cat([valid, valid])
+    eye = torch.eye(2 * m, dtype=torch.bool, device=mid.device)
+    mid = torch.where(eye & ~valid2[None, :], torch.ones_like(mid), mid)
+    rhs = torch.cat([sigma * wv, gv])
+    q = torch.linalg.solve_ex(mid, rhs, check_errors=False).result
+    return CompactCoeffs(sigma=sigma, a=sigma * q[:m], b=q[m:])
+
+
 class LbfgsBuffer:
     """Fixed-capacity ring of flat (dw, dg) pairs, newest last.
 

@@ -9,6 +9,10 @@ the history's tier.
 ``ResidentStore`` serves a stacked (device-resident) history whole: every
 approx segment runs at once and reads its rows in place.
 
+An online request's history rewrites land through ``commit``: a scatter
+into the resident tensors, or the codec's write-back of every rewritten
+row on the offload tiers.
+
 ``SegmentStreamer`` serves a host- or disk-tier history in windows of
 ``window`` steps (`auto_window`).  Worker threads stage each window's
 encoded rows into pinned host buffers and copy them to the device on a
@@ -136,6 +140,12 @@ class HistoryStore:
         """Most history bytes this store held on the device at once."""
         raise NotImplementedError
 
+    def commit(self, rewrites: Dict[int, Tuple[torch.Tensor, torch.Tensor]],
+               final_params) -> None:
+        """Land an online request's deferred rewrites {t: (w_t, g_t)} (flat
+        device rows) in the history, and finalize `final_params` there."""
+        raise NotImplementedError
+
     def close(self) -> None:
         """Stop the store's threads and drop its device windows."""
 
@@ -158,6 +168,17 @@ class ResidentStore(HistoryStore):
 
     def hbm_high_water(self) -> int:
         return self.history.nbytes()
+
+    def commit(self, rewrites, final_params) -> None:
+        """One scatter per quantity into the resident (T, p) tensors, in
+        place (the request read every row it rewrites before this)."""
+        if rewrites:
+            ts = sorted(rewrites)
+            idx = torch.tensor(ts, device=self.W.device)
+            self.W.index_copy_(0, idx, torch.stack([rewrites[t][0] for t in ts]))
+            self.G.index_copy_(0, idx, torch.stack([rewrites[t][1] for t in ts]))
+        self.history.replace_from_stacked(self.W, self.G,
+                                          final_params=final_params)
 
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
@@ -464,6 +485,22 @@ class SegmentStreamer(HistoryStore):
 
     def hbm_high_water(self) -> int:
         return self._hbm_high
+
+    def commit(self, rewrites, final_params) -> None:
+        """Write the rows back through the codec (`TrainingHistory.
+        overwrite`), after the windows staging in the background have
+        finished reading the rows they replace; then drop every window on
+        the device or staged, which holds rows from before the request."""
+        for fut in self._inflight.values():
+            fut.exception()  # wait; a failed read of stale rows is harmless
+        self._evict_before(self.T)  # window ids are below T
+        if rewrites:
+            ts = sorted(rewrites)
+            ws = torch.stack([rewrites[t][0] for t in ts]).cpu().numpy()
+            gs = torch.stack([rewrites[t][1] for t in ts]).cpu().numpy()
+            for i, t in enumerate(ts):
+                self.history.overwrite(t, ws[i], gs[i])
+        self.history.finalize(final_params)
 
     def close(self) -> None:
         for fut in self._inflight.values():

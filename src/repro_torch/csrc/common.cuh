@@ -40,6 +40,22 @@ __device__ __forceinline__ float deltagrad_update(float w, float g, float bv,
   return w - c.lr * num / c.denom;
 }
 
+// The online request's form: the estimate itself,
+//   g_est = (n * (g + bv) - sign * dB * gc) / max(n - sign * dB, 1),
+// which the request writes back into the history, and the step taken with
+// it, w - lr * g_est.  Each operation is rounded on its own (no FMA
+// contraction), as the plain version (torch eager) rounds them.
+__device__ __forceinline__ float deltagrad_estimate(float g, float bv,
+                                                    float gc, UpdateCoef c) {
+  return __fdiv_rn(__fsub_rn(__fmul_rn(c.n, __fadd_rn(g, bv)),
+                             __fmul_rn(c.sdb, gc)),
+                   c.denom);
+}
+
+__device__ __forceinline__ float sgd_step(float w, float g, UpdateCoef c) {
+  return __fsub_rn(w, __fmul_rn(c.lr, g));
+}
+
 // Blocks for a grid-stride elementwise pass: enough to fill the 132 SMs
 // several times over, no more than the data needs.
 inline int elementwise_blocks(int64_t p, int threads) {

@@ -13,6 +13,11 @@
 //                             / max(n - sign * dB, 1)
 //   dequant_sub:    out = w - (q * scale[leaf] (+ base))   (v = w - w_t)
 //
+// dequant_update with g_out given (the online request) also writes the
+// estimate g_out = (n * (g_cached + bv) - sign * dB * gc) / max(n - sign * dB, 1)
+// and steps with it, out = w - lr * g_out (common.cuh deltagrad_estimate,
+// as fused_update.cu's g_out form).
+//
 // Each call covers the whole flat parameter vector (all leaves) in one
 // launch: the TPU kernels run once per leaf because the scale is per
 // (leaf, step), which here would multiply the replay's host launches.
@@ -30,8 +35,8 @@
 // fetch-mode replays bitwise.
 //
 // Bound on an H100 by bytes: dequant_update reads w, bv, gc (f32), q (1 or
-// 2 B) and the base (f32, delta codecs) and writes out: 17 to 22 B per
-// element for ~9 flops.  dequant_sub moves 9 to 14 B per element.  Loads
+// 2 B) and the base (f32, delta codecs) and writes out (and g_out): 17 to
+// 26 B per element for ~9 flops.  dequant_sub moves 9 to 14 B per element.  Loads
 // are coalesced (neighbouring threads on neighbouring elements); vectorized
 // loads are later work.
 
@@ -77,7 +82,9 @@ __device__ __forceinline__ float decode(const Q* __restrict__ q,
   return x;
 }
 
-template <typename Q, bool kScale, bool kBase>
+// kG: the estimate form (g_out written), a template argument as in
+// fused_update.cu, so the offline form's instances hold no trace of it.
+template <typename Q, bool kScale, bool kBase, bool kG>
 __global__ void __launch_bounds__(kThreads)
 dequant_update_kernel(const float* __restrict__ w, const Q* __restrict__ q,
                       const float* __restrict__ bv,
@@ -85,8 +92,8 @@ dequant_update_kernel(const float* __restrict__ w, const Q* __restrict__ q,
                       const float* __restrict__ base,
                       const float* __restrict__ scale,
                       const int64_t* __restrict__ ends, int n_leaves,
-                      float* __restrict__ out, int64_t p, float lr, float n,
-                      float dB, float sign) {
+                      float* __restrict__ out, float* __restrict__ g_out,
+                      int64_t p, float lr, float n, float dB, float sign) {
   Leaves lv{nullptr, nullptr, 0};
   if (kScale) lv = load_leaves(ends, scale, n_leaves);
   const repro::UpdateCoef c = repro::update_coef(lr, n, dB, sign);
@@ -95,7 +102,13 @@ dequant_update_kernel(const float* __restrict__ w, const Q* __restrict__ q,
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < p;
        j += stride) {
     const float g = decode<Q, kScale, kBase>(q, base, lv, leaf, j);
-    out[j] = repro::deltagrad_update(w[j], g, bv[j], gc[j], c);
+    if (kG) {
+      const float est = repro::deltagrad_estimate(g, bv[j], gc[j], c);
+      g_out[j] = est;
+      out[j] = repro::sgd_step(w[j], est, c);
+    } else {
+      out[j] = repro::deltagrad_update(w[j], g, bv[j], gc[j], c);
+    }
   }
 }
 
@@ -119,21 +132,30 @@ dequant_sub_kernel(const float* __restrict__ w, const Q* __restrict__ q,
 struct Args {
   const void *w, *q, *bv, *gc, *base, *scale, *ends;
   int n_leaves;
-  void* out;
+  void *out, *g_out;
   int64_t p;
   float lr, n, dB, sign;
   cudaStream_t stream;
 };
 
-template <typename Q, bool kScale, bool kBase>
-cudaError_t launch_update(const Args& a) {
+template <typename Q, bool kScale, bool kBase, bool kG>
+void launch_update_form(const Args& a) {
   const size_t smem = kScale ? a.n_leaves * (sizeof(int64_t) + sizeof(float)) : 0;
-  dequant_update_kernel<Q, kScale, kBase>
+  dequant_update_kernel<Q, kScale, kBase, kG>
       <<<repro::elementwise_blocks(a.p, kThreads), kThreads, smem, a.stream>>>(
           (const float*)a.w, (const Q*)a.q, (const float*)a.bv,
           (const float*)a.gc, (const float*)a.base, (const float*)a.scale,
-          (const int64_t*)a.ends, a.n_leaves, (float*)a.out, a.p, a.lr, a.n,
-          a.dB, a.sign);
+          (const int64_t*)a.ends, a.n_leaves, (float*)a.out, (float*)a.g_out,
+          a.p, a.lr, a.n, a.dB, a.sign);
+}
+
+template <typename Q, bool kScale, bool kBase>
+cudaError_t launch_update(const Args& a) {
+  if (a.g_out != nullptr) {
+    launch_update_form<Q, kScale, kBase, true>(a);
+  } else {
+    launch_update_form<Q, kScale, kBase, false>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -148,7 +170,8 @@ cudaError_t launch_sub(const Args& a) {
   return cudaGetLastError();
 }
 
-// The eight instances of one kernel: q int8 or bf16, scale or not, base or not.
+// The eight instances of one kernel: q int8 or bf16, scale or not, base or
+// not (dequant_update: each in both forms).
 template <template <typename, bool, bool> class L, typename Q>
 cudaError_t by_flags(const Args& a) {
   const bool s = a.scale != nullptr, b = a.base != nullptr;
@@ -183,16 +206,17 @@ cudaError_t by_dtype(const Args& a, int q_dtype) {
 
 }  // namespace
 
-// w, bv, gc, base, out: f32 (p,); q: (p,) int8 or bf16 (q_dtype); scale:
-// (n_leaves,) f32 or null (no multiply); ends: (n_leaves,) int64 leaf end
-// offsets, the last = p; base: null without a keyframe.
+// w, bv, gc, base, out, g_out: f32 (p,); q: (p,) int8 or bf16 (q_dtype);
+// scale: (n_leaves,) f32 or null (no multiply); ends: (n_leaves,) int64 leaf
+// end offsets, the last = p; base: null without a keyframe; g_out: null
+// unless the estimate is wanted.
 extern "C" int dequant_update(const void* w, const void* q, const void* bv,
                               const void* gc, const void* base,
                               const void* scale, const void* ends,
-                              int n_leaves, void* out, int64_t p, float lr,
-                              float n, float dB, float sign, int q_dtype,
-                              void* stream) {
-  const Args a{w, q, bv, gc, base, scale, ends, n_leaves, out, p,
+                              int n_leaves, void* out, void* g_out, int64_t p,
+                              float lr, float n, float dB, float sign,
+                              int q_dtype, void* stream) {
+  const Args a{w, q, bv, gc, base, scale, ends, n_leaves, out, g_out, p,
                lr, n, dB, sign, (cudaStream_t)stream};
   return by_dtype<Update>(a, q_dtype);
 }
@@ -200,7 +224,7 @@ extern "C" int dequant_update(const void* w, const void* q, const void* bv,
 extern "C" int dequant_sub(const void* w, const void* q, const void* base,
                            const void* scale, const void* ends, int n_leaves,
                            void* out, int64_t p, int q_dtype, void* stream) {
-  const Args a{w, q, nullptr, nullptr, base, scale, ends, n_leaves, out, p,
-               0.0f, 0.0f, 0.0f, 0.0f, (cudaStream_t)stream};
+  const Args a{w, q, nullptr, nullptr, base, scale, ends, n_leaves, out,
+               nullptr, p, 0.0f, 0.0f, 0.0f, 0.0f, (cudaStream_t)stream};
   return by_dtype<Sub>(a, q_dtype);
 }

@@ -23,6 +23,8 @@ class Dataset:
             raise ValueError(f"ragged columns: {sizes}")
         self.columns = {k: np.asarray(v) for k, v in columns.items()}
         self.n = next(iter(sizes.values()))
+        # rows deleted by online requests (`core.online`); indices stay
+        self.removed = np.zeros(self.n, dtype=bool)
         self._device_cols: Dict[str, torch.Tensor] = {}
         self._device_key = None
 
@@ -51,11 +53,20 @@ class Dataset:
     def __len__(self) -> int:
         return self.n
 
+    @property
+    def n_remaining(self) -> int:
+        return int(self.n - self.removed.sum())
+
+    @property
+    def remaining_indices(self) -> np.ndarray:
+        return np.nonzero(~self.removed)[0]
+
     def append(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
         """Physically append new rows; returns their indices."""
         m = len(next(iter(rows.values())))
         for k in self.columns:
             self.columns[k] = np.concatenate([self.columns[k], np.asarray(rows[k])])
+        self.removed = np.concatenate([self.removed, np.zeros(m, dtype=bool)])
         new_idx = np.arange(self.n, self.n + m, dtype=np.int64)
         self.n += m
         return new_idx

@@ -4,6 +4,8 @@ arrays as the JAX package's generators, which draw from numpy the same way."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 from repro_torch.data.dataset import Dataset
@@ -46,3 +48,18 @@ def token_stream(n_docs: int, seq_len: int, vocab: int, seed: int = 0) -> Datase
             tokens[i, j] = t
             t = (t + shift + rng.integers(0, 3)) % vocab
     return Dataset({"tokens": tokens})
+
+
+def train_test_split(ds: Dataset, test_frac: float,
+                     seed: int = 0) -> Tuple[Dataset, Dataset]:
+    """(train, test): a seeded permutation's first ``int(n * test_frac)``
+    rows are the test set, the rest the training set, each in permuted
+    order."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(ds.n)
+    n_test = int(ds.n * test_frac)
+    test_idx, train_idx = perm[:n_test], perm[n_test:]
+    return (
+        Dataset({k: v[train_idx] for k, v in ds.columns.items()}),
+        Dataset({k: v[test_idx] for k, v in ds.columns.items()}),
+    )

@@ -70,21 +70,24 @@ def dequant_update(w: torch.Tensor, q: torch.Tensor, bv: torch.Tensor,
                    g_changed: torch.Tensor, lr: float, n: float, dB: float,
                    sign: float, scale: Optional[torch.Tensor],
                    bounds: Optional[Sequence[int]],
-                   base: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   base: Optional[torch.Tensor] = None,
+                   with_g: bool = False):
     """w - lr*(n*(g + bv) - sign*dB*g_changed)/max(n - sign*dB, 1) with
-    g = q*scale (+ base) decoded in registers."""
+    g = q*scale (+ base) decoded in registers; with ``with_g``, (w -
+    lr*g_est, g_est) for that estimate g_est, as `fused_update.ops.update`."""
     f32s = [bv, g_changed] + ([] if base is None else [base])
     bounds = _check("dequant_update", w, q, f32s, scale, bounds)
     lr, n, dB, sign = float(lr), float(n), float(dB), float(sign)
     if not on_card("dequant_update", w):
         return dequant_update_ref(w, q, bv, g_changed, lr, n, dB, sign, scale,
-                                  bounds, base)
+                                  bounds, base, with_g)
     ends = None if scale is None else _device_ends(bounds, w.device)
     out = torch.empty_like(w)
-    K.dequant_update(w, q, bv, g_changed, base, scale, ends, out, lr, n, dB,
-                     sign)
+    g_out = torch.empty_like(w) if with_g else None
+    K.dequant_update(w, q, bv, g_changed, base, scale, ends, out, g_out, lr, n,
+                     dB, sign)
     dequant_update.launches += 1
-    return out
+    return (out, g_out) if with_g else out
 
 
 def dequant_sub(w: torch.Tensor, q: torch.Tensor,

@@ -51,11 +51,12 @@ def dequant_update_ref(w: torch.Tensor, q: torch.Tensor, bv: torch.Tensor,
                        dB: float, sign: float,
                        scale: Optional[torch.Tensor],
                        bounds: Optional[Sequence[int]],
-                       base: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       base: Optional[torch.Tensor] = None,
+                       with_g: bool = False):
     """`deltagrad_update_ref` with the cached-gradient operand supplied
     encoded (decoded on the fly)."""
     return deltagrad_update_ref(w, dequant_ref(q, scale, bounds, base), bv,
-                                g_changed, lr, n, dB, sign)
+                                g_changed, lr, n, dB, sign, with_g)
 
 
 def dequant_sub_ref(w: torch.Tensor, q: torch.Tensor,

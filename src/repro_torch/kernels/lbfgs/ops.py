@@ -4,11 +4,11 @@ the kernels mask the ragged edge, so nothing is padded."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.lbfgs import compact_coeffs
+from repro_torch.core.lbfgs import compact_coeffs, compact_coeffs_masked
 from repro_torch.kernels.lbfgs import kernel as K
 from repro_torch.kernels.lbfgs.ref import multidot_ref, rank_update_ref
 from repro_torch.kernels.ops_common import check_vectors, on_card
@@ -72,11 +72,17 @@ def rank_update(dW: torch.Tensor, dG: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def lbfgs_hvp_fused(dW: torch.Tensor, dG: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """B v: one multidot pass, the plain compact solve, one rank_update pass."""
+def lbfgs_hvp_fused(dW: torch.Tensor, dG: torch.Tensor, v: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B v: one multidot pass, the plain compact solve, one rank_update pass.
+    `valid` (m,) bool marks a partially filled ring's occupied slots (the
+    online engine's `core.lbfgs.ring_valid_mask`): the solve is then
+    `compact_coeffs_masked`."""
     sw, sy, wv, gv = multidot(dW, dG, v)
-    c = compact_coeffs(sw, sy, wv, gv)
+    if valid is None:
+        c = compact_coeffs(sw, sy, wv, gv)
+    else:
+        c = compact_coeffs_masked(sw, sy, wv, gv, valid)
     return rank_update(dW, dG, v, c.a, c.b, c.sigma)
 
 

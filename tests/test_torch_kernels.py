@@ -81,6 +81,36 @@ def test_fused_update_matches_jax(p, sign, dB, dtype):
                                                  dB, sign))
 
 
+@pytest.mark.parametrize("p,sign,dB", [(1000, 1, 3.0), (4099, -1, 5.0),
+                                       (777, 1, 0.0)])
+def test_fused_update_estimate_form_matches_the_reference_online_math(p, sign,
+                                                                      dB):
+    """``with_g`` (the online request's form) returns the estimate and the
+    step taken with it: the reference's online approx step, `_approx_math`
+    then `_sgd_math`, within 1e-6; the estimate is bitwise the port's
+    `_approx_math`, and the step bitwise w - lr*g."""
+    from repro.core.engine import _approx_math as j_approx, _sgd_math as j_sgd
+    from repro_torch.core.engine import _approx_math
+
+    rng = np.random.default_rng(p + 1)
+    arrs = [_pair(rng.normal(size=p), "f32") for _ in range(4)]
+    w, g, bv, gc = (a[0] for a in arrs)
+    lr, n = 0.1, 40.0
+    new, est = update(w, g, bv, gc, lr, n, dB, sign, with_g=True)
+    assert torch.equal(est, _approx_math(g, bv, gc, n, dB, sign))
+    assert torch.equal(new, w - lr * est)
+    jw, jg, jbv, jgc = (a[1] for a in arrs)
+    j_est = j_approx(jg, jbv, jgc, n, dB, sign)
+    np.testing.assert_allclose(est.numpy(), np.asarray(j_est), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(new.numpy(), np.asarray(j_sgd(jw, j_est, lr)),
+                               rtol=1e-6, atol=1e-6)
+    # the offline form is the same update to rounding
+    np.testing.assert_allclose(new.numpy(),
+                               update(w, g, bv, gc, lr, n, dB, sign).numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
 # -- multidot / rank_update -------------------------------------------------------
 
 
@@ -242,6 +272,12 @@ def test_dequant_update_matches_jax(leaves, qdtype, with_base, sign, dB):
                                                scale, bounds, base))
     assert torch.equal(got, update(w, dequant_ref(q, scale, bounds, base), bv,
                                    gc, lr, n, dB, sign))
+    # the estimate form, as the online request calls it
+    pair = dequant_update(w, q, bv, gc, lr, n, dB, sign, scale, bounds, base,
+                          with_g=True)
+    want = update(w, dequant_ref(q, scale, bounds, base), bv, gc, lr, n, dB,
+                  sign, with_g=True)
+    assert all(torch.equal(a, b) for a, b in zip(pair, want))
     for i, x in enumerate(parts):
         jw, jq, jbv, jgc, js, jb = _jax_leaf(x, qdtype)
         mine = got[bounds[i]:bounds[i + 1]].numpy()
