@@ -50,7 +50,17 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
  11. Algorithm 3: delete, add and heavy-ball (lr 0.1) delete streams of 8
      requests at n 8000, d 4000, each against the port's CPU run of the
      same stream and against BaseL, with per-request times and launches;
-     then a host-tier delta_int8 stream, kernel mode against fetch mode.
+     then a host-tier delta_int8 stream, kernel mode against fetch mode;
+ 12. the session surface (`UnlearnerSession`): at the rcv1.binary width, a
+     coalesced delete burst (held to Algorithm 1's replay of the same
+     rows), a serial stream of deletes and adds, each against the port's
+     CPU run of the same session, the certificates and two publishes from
+     one generator state, retrain_oracle bitwise BaseL and one
+     descent_to_delete group; at quickstart's size, a snapshot restored
+     mid-stream bitwise the uninterrupted session for each algorithm, and
+     a host-tier delta_int8 session in kernel against fetch mode; then
+     `from_config` on InternLM2 (2 layers, d_head 64) with flash, its
+     counters against the CPU run's.
 
 Phase 2 also holds the bf16 flash kernel to the reference flash's f32 P:
 its mean |err|/(1+|plain|) below a quarter of the bf16-P softmax's.
@@ -119,6 +129,22 @@ ONLINE = dict(n=8000, d=4000, batch=4096, steps=60, lr=0.3, l2=5e-3,
               period=5, burn_in=10, m=2, seed=0, requests=8, window=16,
               momentum_lr=0.1)
 ONLINE_TOL = 1e-5  # card against the port's CPU run, max |gap| of w
+# phase 12: the session surface.  At the rcv1.binary width (LOGREG, on
+# paper_logreg's recipe): a coalesced burst of r rows, then a serial stream
+# of 8 deletes and 2 adds; at quickstart's size (examples/quickstart.py),
+# snapshots and the host tier; the tests' privacy constants
+# (tests/test_algorithms.py:25)
+SESSION = dict(stream_deletes=8, stream_adds=2)
+QUICK = dict(n=5000, d=200, steps=100, batch=1024, lr=0.3, period=5,
+             burn_in=10, m=2, deleted=50, seed=0, window=12)
+PRIVACY = dict(eps=1.0, delta=1e-5, mu=0.5, L=1.0, c0=0.1, c2=0.1)
+NOISE_TOL = 0.02  # empirical std of the Laplace noise against b sqrt(2)
+# from_config on InternLM2 at 2 layers, widths cut to d_head 64 (flash's
+# set): 8 heads of 64 over d_model 512, 4 KV heads
+SESSION_LM = dict(reduced=dict(n_layers=2, d_model=512, n_heads=8,
+                               n_kv_heads=4, d_head=64, d_ff=1024, vocab=4096),
+                  docs=64, seq=128, batch=16, steps=6, lr=0.01, seed=5,
+                  rows=[3, 17, 40, 61])
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -971,9 +997,13 @@ def main() -> int:
 
     # -- 10. logistic regression at the RCV1 shape; 11. Algorithm 3 ---------------
     gc_collect()
-    logreg_phase(torch, np, dev, kernels)
+    rcv1 = logreg_phase(torch, np, dev, kernels)
     gc_collect()
     online_phase(torch, np, dev, kernels)
+
+    # -- 12. the session surface ------------------------------------------------------
+    gc_collect()
+    session_phase(torch, np, dev, kernels, rcv1)
 
     # -- results ---------------------------------------------------------------------
     if FAILURES:
@@ -1012,12 +1042,13 @@ def counted_run(kernels, fn):
     return out, {n: k["wrapper"].launches for n, k in kernels.items()}
 
 
-def logreg_phase(torch, np, dev, kernels) -> None:
+def logreg_phase(torch, np, dev, kernels) -> dict:
     """Phase 10: the paper's L2-regularised logistic regression at the
     LIBSVM rcv1.binary training shape (paper §4.1; synthetic features at
     that shape, dense f32 on the card), paper_logreg's recipe with B 4096
     and T 60: a delete and an add replay of r rows, and a heavy-ball
-    (0.9) delete replay, each against BaseL on the changed data."""
+    (0.9) delete replay, each against BaseL on the changed data.  Returns
+    the data set's first n rows (numpy) for phase 12."""
     from repro_torch.configs.paper_logreg import RECIPE
     from repro_torch.core import deltagrad as dg
     from repro_torch.core.history import HistoryMeta
@@ -1124,6 +1155,7 @@ def logreg_phase(torch, np, dev, kernels) -> None:
     trained = run("delete", 0.0, "delete")
     run("momentum-0.9 delete", 0.9, "delete")
     run("add", 0.0, "add", trained=trained)  # appends: last
+    return {k: v[:L["n"]] for k, v in ds.columns.items()}
 
 
 def online_phase(torch, np, dev, kernels) -> None:
@@ -1456,6 +1488,328 @@ def lm_phase(torch, np, dev, kernels, profiled) -> dict:
     return {"fused_update": n["fused_update"], "multidot": n["multidot"],
             "rank_update": n["rank_update"], "dequant_update": n_k["dequant_update"],
             "dequant_sub": n_k["dequant_sub"]}
+
+
+def session_phase(torch, np, dev, kernels, rcv1: dict) -> None:
+    """Phase 12: the session surface (`core.session.UnlearnerSession`).
+
+    At the rcv1.binary width (phase 10's data and recipe, stacked tier):
+    fit, BaseL on the burst's rows, one coalesced delete burst of r rows,
+    a serial stream of 8 deletes and 2 adds through `serve_stream`, each
+    held against the port's CPU run of the same session; the certificate
+    under the default constants (must refuse) and the tests' constants,
+    and two publishes from one generator state; `retrain_oracle` against
+    BaseL; one `descent_to_delete` group.  At quickstart's size: a
+    snapshot mid-stream, restored and served on, bitwise the uninterrupted
+    session for each algorithm, and a host-tier delta_int8 session in
+    kernel mode against fetch mode.  Then `from_config` on the InternLM2
+    architecture with the flash kernel."""
+    import dataclasses as dc
+    import tempfile
+
+    from repro_torch.configs.paper_logreg import RECIPE
+    from repro_torch.core.algorithms import DescentToDeleteConfig
+    from repro_torch.core.deltagrad import DeltaGradConfig, deltagrad_retrain
+    from repro_torch.core.privacy import PrivacyConfig, gaussian_sigma
+    from repro_torch.core.session import UnlearnerConfig, UnlearnerSession
+    from repro_torch.data.dataset import Dataset
+    from repro_torch.data.synthetic import binary_classification, token_stream
+    from repro_torch.models.simple import logreg_init, logreg_objective
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    L = LOGREG
+    obj = logreg_objective(l2=RECIPE.l2)
+    p0 = logreg_init(L["d"], generator=torch.Generator().manual_seed(L["seed"]),
+                     device=cpu)
+
+    def session(where, algorithm="deltagrad", **kw):
+        cfg = UnlearnerConfig(
+            steps=L["steps"], batch_size=L["batch"], lr=RECIPE.lr,
+            seed=L["seed"], algorithm=algorithm,
+            deltagrad=DeltaGradConfig(period=RECIPE.period,
+                                      burn_in=RECIPE.burn_in,
+                                      history_size=RECIPE.history_size), **kw)
+        s = UnlearnerSession(obj, p0, Dataset(dict(rcv1)), cfg, device=where)
+        t0 = time.perf_counter()
+        s.fit()
+        return s, time.perf_counter() - t0
+
+    def counters(stats):
+        return [x.counters() for x in stats]
+
+    rng = np.random.default_rng(L["seed"] + 2)
+    rows = rng.choice(L["n"], L["r"] + SESSION["stream_deletes"], replace=False)
+    burst, dels = rows[:L["r"]].tolist(), rows[L["r"]:].tolist()
+    add_src = rng.choice(L["n"], SESSION["stream_adds"], replace=False)
+
+    # -- at the rcv1.binary width: burst, stream, certificate, publish --------
+    card, fit_s = session(dev)
+    host, _ = session(cpu)
+    w_star = card.params.flat.clone()
+    w_u, st_u = card.baseline(burst)
+    # Algorithm 1 on the same rows and cached path, before the burst
+    # rewrites the path: the group request must be this replay
+    w_a1, _ = deltagrad_retrain(obj, card.history, card.dataset, burst,
+                                card.config.deltagrad, device=dev)
+    # how d_ui/d_us of Algorithm 1 spreads over other draws of r rows on
+    # this recipe: phase 10's draw (seed + 1), then seeds 10 to 15
+    spread = []
+    for seed in [L["seed"] + 1] + list(range(10, 16)):
+        other = np.random.default_rng(seed).choice(L["n"], L["r"], replace=False)
+        w_o, _ = card.baseline(other)
+        w_i, _ = deltagrad_retrain(obj, card.history, card.dataset, other,
+                                   card.config.deltagrad, device=dev)
+        spread.append((w_o.flat - w_i.flat).norm().item()
+                      / (w_o.flat - w_star).norm().item())
+    print("session rcv1: Algorithm 1's d_ui/d_us over other draws of "
+          f"{L['r']} rows (seed {L['seed'] + 1}, 10..15): "
+          + ", ".join(f"{x:.4f}" for x in spread), flush=True)
+    del w_o, w_i
+    resp, n = counted_run(kernels, lambda: card.delete(burst).result())
+    resp_c = host.delete(burst).result()
+    st = resp.stats[0]
+    gap = (card.params.flat.cpu() - host.params.flat).abs().max().item()
+    same = counters(resp.stats) == counters(resp_c.stats)
+    d_ui = (w_u.flat - card.params.flat).norm().item()
+    d_us = (w_u.flat - w_star).norm().item()
+    d_a1 = (w_a1.flat - card.params.flat).abs().max().item()
+    print(f"session rcv1 burst: fit_s={fit_s:.4f} baseline_s={st_u.wall_time_s:.4f} "
+          f"group_size={resp.group_size} dispatch_s={resp.dispatch_s:.4f} "
+          + " ".join(f"{k}={v}" for k, v in st.counters().items())
+          + f" d_ui={d_ui:.6e} d_us={d_us:.6e} d_ui/d_us={d_ui / d_us:.4e} "
+          f"(Algorithm 1 on these rows: "
+          f"{(w_u.flat - w_a1.flat).norm().item() / d_us:.4e}; max |gap| to it "
+          f"{d_a1:.3e}, bar {PARITY_TOL}) card vs cpu: max |gap| {gap:.3e} "
+          f"(bar {PARITY_TOL}), counters equal: {same}; launches "
+          f"{json.dumps(n)}", flush=True)
+    if not (same and gap <= PARITY_TOL):
+        fail(f"session rcv1 burst: card vs cpu gap {gap:.3e}, counters equal: {same}")
+    # the first group request on the cached path is Algorithm 1's group
+    # correction.  d_ui/d_us is recorded, not held: on this recipe it
+    # depends on which r rows go (the spread printed above; PERF.md §7),
+    # and phase 10 holds its own draw below 1
+    if not (bool(torch.isfinite(card.params.flat).all()) and d_a1 <= PARITY_TOL):
+        fail(f"session rcv1 burst: max |gap| {d_a1:.3e} to Algorithm 1's replay")
+    for k in RESIDENT:  # one launch each per approx step (the estimate form)
+        if st.approx_steps <= 0 or n[k] != st.approx_steps:
+            fail(f"session rcv1 burst: {k} launched {n[k]} times for "
+                 f"{st.approx_steps} approx steps")
+
+    ops = [("delete", r) for r in dels]
+    for s in (card, host):
+        new = s.dataset.append({k: v[add_src] for k, v in rcv1.items()})
+    ops += [("add", int(r)) for r in new]
+    ost, n = counted_run(kernels, lambda: card.serve_stream(ops))
+    ost_c = host.serve_stream(ops)
+    gap = (card.params.flat.cpu() - host.params.flat).abs().max().item()
+    same = counters(ost.per_request) == counters(ost_c.per_request)
+    tickets = range(card._tickets - len(ops), card._tickets)
+    dispatch = [card._responses[t].dispatch_s * 1e3 for t in tickets]
+    approx = sum(x.approx_steps for x in ost.per_request)
+    print(f"session rcv1 stream ({len(dels)} deletes, {len(new)} adds, "
+          f"coalesce=False): per-request dispatch ms "
+          + ", ".join(f"{x:.3f}" for x in dispatch)
+          + f" (median {statistics.median(dispatch):.3f}); to the end of each "
+          "request's device work (a request synchronises, so its handle "
+          "is forced then) ms "
+          + ", ".join(f"{x.wall_time_s * 1e3:.3f}" for x in ost.per_request)
+          + f"; stream wall_s (to the forced end) {ost.wall_time_s:.4f}; per-request "
+          + "; ".join(f"{op} e={x.explicit_steps} a={x.approx_steps}"
+                      for (op, _), x in zip(ops, ost.per_request))
+          + f"; card vs cpu: max |gap| {gap:.3e} (bar {PARITY_TOL}), counters "
+          f"equal per request: {same}; launches {json.dumps(n)}", flush=True)
+    if not (same and gap <= PARITY_TOL):
+        fail(f"session rcv1 stream: card vs cpu gap {gap:.3e}, counters equal: {same}")
+    for k in RESIDENT:
+        if approx <= 0 or n[k] != approx:
+            fail(f"session rcv1 stream: {k} launched {n[k]} times for "
+                 f"{approx} approx steps")
+
+    try:  # PrivacyConfig() defaults: mu = l2 = 5e-3 makes delta0's denominator < 0
+        card.certificate()
+        fail("session rcv1: the default certificate did not refuse")
+    except ValueError as e:
+        print(f"session rcv1 certificate, default constants: refused "
+              f"(ValueError: {e})", flush=True)
+    for s in (card, host):  # the algorithms read the session's config object
+        s.config.privacy = PrivacyConfig(**PRIVACY)
+    cert, cert_c = card.certificate(), host.certificate()
+    gen = card._publish_generator()
+    state = gen.get_state()
+    w = card.params.flat.clone()
+    t0 = time.perf_counter()
+    pub1, c1 = card.publish()
+    pub_s = time.perf_counter() - t0
+    gen.set_state(state)
+    pub2, _ = card.publish()
+    noise = (pub1.flat - w).double()
+    want = cert.noise_scale * math.sqrt(2.0)  # Laplace(b): std b sqrt(2)
+    print(f"session rcv1 certificate {json.dumps(cert.as_dict())}; cpu equal: "
+          f"{cert.as_dict() == cert_c.as_dict()}; publish_s={pub_s:.4f}, "
+          f"two publishes from one generator state bitwise equal: "
+          f"{torch.equal(pub1.flat, pub2.flat)}; noise std {noise.std().item():.6e} "
+          f"against noise_scale*sqrt(2) {want:.6e} over {noise.numel()} "
+          f"coordinates (bar {NOISE_TOL:.0%})", flush=True)
+    if cert.as_dict() != cert_c.as_dict() or cert.removals != len(burst) + len(dels):
+        fail(f"session rcv1: certificate {cert} (cpu {cert_c})")
+    if not torch.equal(pub1.flat, pub2.flat):
+        fail("session rcv1: publishes from one generator state differ")
+    if not abs(noise.std().item() / want - 1.0) <= NOISE_TOL:
+        fail(f"session rcv1: noise std {noise.std().item():.4e} against {want:.4e}")
+    del card, host, w_u, pub1, pub2, noise
+    gc_collect()
+
+    # retrain_oracle: the engine under an all-explicit plan, against BaseL
+    oracle, _ = session(dev, "retrain_oracle")
+    resp, n = counted_run(kernels, lambda: oracle.delete(burst).result())
+    w_b, st_b = oracle.baseline(burst)
+    bitwise = torch.equal(oracle.params.flat, w_b.flat)
+    print(f"session rcv1 retrain_oracle: dispatch_s={resp.dispatch_s:.4f} "
+          f"baseline_s={st_b.wall_time_s:.4f} "
+          + " ".join(f"{k}={v}" for k, v in resp.stats[0].counters().items())
+          + f"; bitwise BaseL: {bitwise} (max |gap| "
+          f"{(oracle.params.flat - w_b.flat).abs().max().item():.3e}); "
+          f"certificate {json.dumps(oracle.certificate().as_dict())}; "
+          f"launches {json.dumps(n)}", flush=True)
+    if not bitwise:
+        fail("session rcv1 retrain_oracle: not bitwise BaseL")
+    del oracle
+    gc_collect()
+
+    d2d, _ = session(dev, "descent_to_delete", privacy=PrivacyConfig(**PRIVACY),
+                     descent=DescentToDeleteConfig(finetune_steps=5, lr=RECIPE.lr))
+    w0 = d2d.params.flat.clone()
+    resp = d2d.delete(burst).result()
+    cert = d2d.certificate()
+    w_d = d2d.params.flat
+    d_b = (w_d - w_b.flat).norm().item()
+    d_0 = (w0 - w_b.flat).norm().item()
+    print(f"session rcv1 descent_to_delete: I=5 full-batch steps over "
+          f"{resp.stats[0].grad_examples // 5} live rows, wall_s="
+          f"{resp.stats[0].wall_time_s:.4f}; ||w - w_U|| {d_b:.6e} (before "
+          f"{d_0:.6e}); certificate {json.dumps(cert.as_dict())}", flush=True)
+    if not (cert.mechanism == "gaussian" and cert.bound > 0.0
+            and cert.noise_scale == gaussian_sigma(cert.bound, cert.eps, cert.delta)
+            and bool(torch.isfinite(w_d).all())):
+        fail(f"session rcv1 descent_to_delete: certificate {cert}")
+    del d2d, w_b
+    gc_collect()
+
+    # -- at quickstart's size: snapshots, and the host tier --------------------
+    Q = QUICK
+    qcols = binary_classification(Q["n"], Q["d"], seed=Q["seed"]).columns
+    qobj = logreg_objective(l2=5e-3)
+    qp0 = logreg_init(Q["d"], generator=torch.Generator().manual_seed(1),
+                      device=cpu)
+    qrows = np.random.default_rng(3).choice(Q["n"], Q["deleted"], replace=False)
+    first, rest = qrows[:Q["deleted"] // 2].tolist(), qrows[Q["deleted"] // 2:].tolist()
+
+    def qsession(algorithm="deltagrad", dg=None, **kw):
+        cfg = UnlearnerConfig(
+            steps=Q["steps"], batch_size=Q["batch"], lr=Q["lr"], seed=Q["seed"],
+            algorithm=algorithm, privacy=PrivacyConfig(**PRIVACY),
+            deltagrad=DeltaGradConfig(period=Q["period"], burn_in=Q["burn_in"],
+                                      history_size=Q["m"], **(dg or {})), **kw)
+        s = UnlearnerSession(qobj, qp0, Dataset(dict(qcols)), cfg, device=dev)
+        s.fit()
+        return s
+
+    def rest_of_stream(s):
+        s.stream_delete(rest[1:6])
+        s.delete(rest[6:]).result()
+        s.add(data={k: v[:2] for k, v in qcols.items()}).result()
+        out, _ = s.publish()
+        return s.params.flat, out.flat, [
+            x.counters() for e in s.log[-3:] for x in e["stats"]]
+
+    for algorithm in ("deltagrad", "descent_to_delete", "retrain_oracle"):
+        a = qsession(algorithm)
+        a.delete(first).result()
+        a.publish()  # the generator moves before the snapshot
+        h = a.delete([rest[0]])
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                a.save(tmp, pending="refuse")
+                fail(f"session snapshot {algorithm}: save(pending='refuse') "
+                     "did not raise with a request pending")
+            except RuntimeError:
+                pass
+            t0 = time.perf_counter()
+            step_dir = a.save(tmp)  # drains the pending request
+            save_s = time.perf_counter() - t0
+            nbytes = sum(f.stat().st_size for f in Path(step_dir).iterdir())
+            t0 = time.perf_counter()
+            b = UnlearnerSession.restore(tmp, qobj, device=dev)
+            restore_s = time.perf_counter() - t0
+        wa, pa, sa = rest_of_stream(a)
+        wb, pb, sb = rest_of_stream(b)
+        ok = (h.done and torch.equal(wa, wb) and torch.equal(pa, pb)
+              and sa == sb)
+        print(f"session snapshot {algorithm}: {nbytes} bytes, save_s="
+              f"{save_s:.4f} restore_s={restore_s:.4f}; the rest of the "
+              f"stream bitwise the uninterrupted session's: {ok}", flush=True)
+        if not ok:
+            fail(f"session snapshot {algorithm}: restored session differs")
+        del a, b
+
+    runs = {}
+    for mode in ("kernel", "fetch"):
+        s = qsession(history_tier="host", history_codec="delta_int8",
+                     dg=dict(stream_window=Q["window"], stream_decode=mode))
+        resp, n = counted_run(kernels, lambda: s.delete(qrows.tolist()).result())
+        runs[mode] = (s.params.flat, resp.stats[0], n)
+    (wk, sk, nk), (wf, sf, nf) = runs["kernel"], runs["fetch"]
+    bitwise = torch.equal(wk, wf) and sk.counters() == sf.counters()
+    print(f"session host/delta_int8 burst of {len(qrows)}: kernel mode "
+          f"bitwise fetch mode: {bitwise}; approx={sk.approx_steps} "
+          f"stream_decode={sk.extra.get('stream_decode')}/"
+          f"{sf.extra.get('stream_decode')}; launches "
+          f"kernel {json.dumps(nk)} fetch {json.dumps(nf)}", flush=True)
+    if not bitwise:
+        fail("session host/delta_int8: kernel mode is not bitwise fetch mode")
+    for k in ("dequant_update", "dequant_sub", "multidot", "rank_update"):
+        if sk.approx_steps <= 0 or nk[k] != sk.approx_steps:
+            fail(f"session host/delta_int8 kernel: {k} launched {nk[k]} "
+                 f"times for {sk.approx_steps} approx steps")
+
+    # -- from_config on the LM, flash on every forward pass --------------------
+    M = SESSION_LM
+    vocab = M["reduced"]["vocab"]
+
+    def lm_config():
+        return UnlearnerConfig(steps=M["steps"], batch_size=M["batch"],
+                               lr=M["lr"], seed=M["seed"],
+                               deltagrad=DeltaGradConfig(period=2, burn_in=2,
+                                                         history_size=2))
+
+    lm = UnlearnerSession.from_config(
+        "internlm2-1.8b", token_stream(M["docs"], M["seq"], vocab, seed=0),
+        reduced=M["reduced"], config=lm_config(), attn_impl="flash",
+        loss_chunk=M["seq"], device=dev)
+    lm_cpu = UnlearnerSession(
+        lm.objective, lm.params0.to(cpu),
+        token_stream(M["docs"], M["seq"], vocab, seed=0), lm_config(),
+        device=cpu)
+    _, n_fit = counted_run(kernels, lm.fit)
+    lm_cpu.fit()
+    resp, n = counted_run(kernels, lambda: lm.delete(M["rows"]).result())
+    resp_c = lm_cpu.delete(M["rows"]).result()
+    same = resp.stats[0].counters() == resp_c.stats[0].counters()
+    gap = (lm.params.flat.cpu() - lm_cpu.params.flat).abs().max().item()
+    print(f"session lm from_config: p={lm.params0.numel} head_dim="
+          f"{lm.model.cfg.head_dim} "
+          + " ".join(f"{k}={v}" for k, v in resp.stats[0].counters().items())
+          + f" dispatch_s={resp.dispatch_s:.4f}; counters equal to the CPU "
+          f"run's (plain attention): {same}; max |gap| {gap:.3e} (bf16, "
+          f"recorded); flash launches fit {n_fit['flash_attention']} burst "
+          f"{n['flash_attention']}; launches {json.dumps(n)}", flush=True)
+    if not (same and bool(torch.isfinite(lm.params.flat).all())):
+        fail(f"session lm from_config: counters equal {same}")
+    if n["flash_attention"] <= 0 or n_fit["flash_attention"] <= 0:
+        fail("session lm from_config: flash_attention was not launched")
+    print(f"session: phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

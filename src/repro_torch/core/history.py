@@ -38,6 +38,7 @@ int8 encode is its expression verbatim, applied leaf by leaf.
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 import time
 from dataclasses import dataclass
@@ -171,6 +172,16 @@ class DeltaBF16Codec(DeltaCodec):
 CODECS = {"f32": F32Codec, "bf16": BF16Codec, "int8": Int8Codec,
           "delta_int8": DeltaInt8Codec, "delta_bf16": DeltaBF16Codec}
 
+# marks a `TrainingHistory.state_dict` of this package (the JAX package's
+# state has no "format" key)
+STATE_FORMAT = "repro_torch/1"
+
+
+def _host_copy(x: torch.Tensor) -> np.ndarray:
+    """A numpy copy that later in-place rewrites of `x` leave alone (a
+    CPU tensor's ``.numpy()`` would share its memory)."""
+    return x.detach().to("cpu", copy=True).numpy()
+
 
 # --------------------------------------------------------------------------
 # History
@@ -211,7 +222,6 @@ class TrainingHistory:
                     "directory (removed when the process exits)")
             if spill_dir == "auto":
                 import atexit
-                import shutil
                 import tempfile
                 spill_dir = tempfile.mkdtemp(prefix="repro_torch_history_")
                 atexit.register(shutil.rmtree, spill_dir, ignore_errors=True)
@@ -497,18 +507,91 @@ class TrainingHistory:
         return sum(os.path.getsize(p) for p in self._win_paths
                    if os.path.exists(p))
 
-    # -- carrying a history across ---------------------------------------------
+    # -- snapshots, and carrying a history across -------------------------------
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The history as numpy and plain data, for a session snapshot
+        (`from_state_dict` reads it back on any device).  Stacked: the (T, p)
+        buffers.  Host: the encoded rows and the keyframe bases.  Disk: the
+        window files stay where they are, so the state names them (with
+        ``spill_window`` and the flushed count), as the JAX package's
+        does; the partial tail is flushed to disk first."""
+        if self.tier == "disk":
+            self._flush_spill(everything=True)
+        state: Dict[str, Any] = {
+            "format": STATE_FORMAT,
+            "meta": self.meta,
+            "tier": self.tier,
+            "codec": self.codec.name,
+            "shapes": dict(self.shapes),
+            "final_params": (None if self.final_params is None else
+                             _host_copy(self.final_params.flat)),
+            "bases": dict(self._bases),
+        }
+        if self.tier == "stacked":
+            state["W"], state["G"] = _host_copy(self.W), _host_copy(self.G)
+        elif self.tier == "host":
+            state["enc"] = list(self._enc)
+        else:
+            state.update(spill_dir=self.spill_dir,
+                         spill_window=self.spill_window,
+                         win_paths=list(self._win_paths),
+                         spill_flushed=self._spill_flushed, n=self._n)
+        return state
 
     @classmethod
-    def from_state_dict(cls, state: Mapping[str, Any], meta: HistoryMeta,
-                        device=None) -> "TrainingHistory":
-        """A host-tier history from the numpy layout of the JAX package's
-        ``TrainingHistory.state_dict()`` of a host-tier history: per-entry
+    def _from_port_state(cls, state: Mapping[str, Any], device,
+                         spill_dir: Optional[str]) -> "TrainingHistory":
+        dev = torch.device(device)
+        tier = state["tier"]
+        h = cls(state["meta"], tier=tier, codec=state["codec"],
+                spill_dir=(spill_dir or state["spill_dir"]) if tier == "disk"
+                else None,
+                spill_window=state.get("spill_window", 0), device=dev)
+        final = None
+        if state["final_params"] is not None:
+            final = FlatParams(torch.from_numpy(state["final_params"]).to(dev),
+                               state["shapes"])
+        if tier == "stacked":
+            h.set_stacked(torch.from_numpy(state["W"]).to(dev),
+                          torch.from_numpy(state["G"]).to(dev), final)
+            return h
+        h.set_layout(state["shapes"], dev)
+        h._bases = dict(state["bases"])
+        if tier == "host":
+            h._enc = list(state["enc"])
+            h._n = len(h._enc)
+        else:
+            # a new spill_dir gets its own copy of the windows: rewrites go
+            # to spill_dir, so the restored history must read from there
+            h._win_paths = []
+            for wid, path in enumerate(state["win_paths"]):
+                if os.path.abspath(path) != os.path.abspath(h._win_path(wid)):
+                    shutil.copyfile(path, h._win_path(wid))
+                h._win_paths.append(h._win_path(wid))
+            h._spill_flushed = h._n = int(state["spill_flushed"])
+        h.final_params = final
+        return h
+
+    @classmethod
+    def from_state_dict(cls, state: Mapping[str, Any],
+                        meta: Optional[HistoryMeta] = None, device=None,
+                        spill_dir: Optional[str] = None) -> "TrainingHistory":
+        """A history from `state_dict` (any tier; `meta` is in the state,
+        and a disk tier's `spill_dir` defaults to the saved one), or from
+        the numpy layout of the JAX package's ``TrainingHistory.
+        state_dict()`` of a host-tier history (with `meta`): per-entry
         (nested) trees of encoded leaves (``{"q", "scale"}`` dicts for
         int8, bf16 or f32 arrays otherwise), ``bases`` {kwid: (w_tree,
         g_tree)} and ``final_params``.  The codes are taken as they are,
-        not re-encoded, so both packages replay the same bits.  ``device``: where `entry`
-        decodes to (None: the card)."""
+        not re-encoded, so both packages replay the same bits.  ``device``:
+        where `entry` decodes to (None: the card)."""
+        if state.get("format") == STATE_FORMAT:
+            return cls._from_port_state(
+                state, torch.device("cuda" if device is None else device),
+                spill_dir)
+        if meta is None:
+            raise ValueError("a JAX package history state needs `meta`")
         if state["tier"] != "host":
             raise ValueError(
                 f"from_state_dict takes host-tier states, got a "

@@ -51,6 +51,9 @@ from repro_torch.utils.tree import FlatParams
 class OnlineStats:
     per_request: List[RetrainStats] = field(default_factory=list)
     wall_time_s: float = 0.0
+    # the reference's first-request compile cost; eager PyTorch compiles
+    # nothing per shape, so it stays 0.0
+    compile_time_s: float = 0.0
 
     @property
     def grad_examples(self) -> int:
@@ -102,6 +105,12 @@ class OnlineEngine:
         self.added: List[int] = []
         self._joins: Optional[np.ndarray] = None  # (T, capacity) bool
         self.params: FlatParams = history.final_params
+        # the reference's pow2-bucketed row capacity, kept as snapshot
+        # bookkeeping only: eager PyTorch needs no fixed column shapes, so
+        # the device columns are never padded to it
+        self._base_n = ds.n
+        self._row_cap = ds.n + (_next_pow2(self.add_capacity)
+                                if self.add_capacity else 0)
         # the last request's pair ring: snapshot state only (every request
         # rebuilds its ring from the rewritten path)
         self.last_ring: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -141,6 +150,16 @@ class OnlineEngine:
             self._joins, self._add_pad, idx_all=self.idx_all,
             r_pad=_next_pow2(r_eff))
 
+    def _cols(self) -> Dict[str, torch.Tensor]:
+        """The device columns, with the row capacity grown as the
+        reference grows it (a raised ``add_capacity`` counts)."""
+        need = max(len(self.added), self.add_capacity)
+        self._row_cap = max(self._row_cap,
+                            self._base_n + (_next_pow2(need) if need else 0))
+        if self.ds.n > self._row_cap:
+            self._row_cap = self._base_n + _next_pow2(self.ds.n - self._base_n)
+        return self.ds.device_columns(self.device)
+
     # -- requests ------------------------------------------------------------
 
     def request(self, op: str, row: int) -> RetrainStats:
@@ -178,8 +197,7 @@ class OnlineEngine:
                     raise ValueError(f"row {row} already added")
         sched = self._schedule(op, rows)
         params, rstat = run_online_request(
-            self.grad_fn, self.store, self.ds.device_columns(self.device),
-            sched, self.cfg)
+            self.grad_fn, self.store, self._cols(), sched, self.cfg)
         ring = rstat.extra.pop("lbfgs_ring", None)
         if ring is not None:
             self.last_ring = ring
@@ -197,19 +215,24 @@ class OnlineEngine:
     def state_dict(self) -> Dict[str, Any]:
         """Stream state the dataset cannot rebuild: liveness over original
         and added rows, the added rows' order (their join columns), the
-        add capacity, and the last request's pair ring (numpy; recorded
-        only, since every request rebuilds its ring)."""
+        add capacity, the original row count and row capacity, and the
+        last request's pair ring (numpy; recorded only, since every request
+        rebuilds its ring)."""
         ring = None if self.last_ring is None else tuple(
             x.detach().cpu().numpy() for x in self.last_ring)
         return {"live": np.asarray(self.live, dtype=bool).copy(),
                 "added": list(self.added),
                 "add_capacity": int(self.add_capacity),
+                "base_n": int(self._base_n),
+                "row_cap": int(self._row_cap),
                 "lbfgs_ring": ring}
 
     def load_state(self, state: Dict[str, Any]) -> None:
         self.live = np.asarray(state["live"], dtype=bool).copy()
         self.added = list(state["added"])
         self.add_capacity = int(state["add_capacity"])
+        self._base_n = int(state.get("base_n", self.ds.n))
+        self._row_cap = max(int(state.get("row_cap", self.ds.n)), self.ds.n)
         ring = state.get("lbfgs_ring")
         self.last_ring = None if ring is None else tuple(
             torch.from_numpy(np.asarray(x)).to(self.device) for x in ring)

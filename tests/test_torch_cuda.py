@@ -377,3 +377,44 @@ def test_online_stream_on_card_matches_cpu(cuda, momentum):
     assert approx > 0
     assert out["cuda"][2] == ((0 if momentum else approx), approx)
     assert out["cpu"][2] == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["deltagrad", "descent_to_delete",
+                                       "retrain_oracle"])
+def test_session_on_card_matches_cpu(cuda, algorithm, tmp_path):
+    """The session surface on the card against the same session on the
+    CPU: a coalesced burst, a serial stream with an add, counters equal per
+    request, parameters within 1e-5; a snapshot restored on the card serves
+    the next request bitwise as the uninterrupted session."""
+    from repro_torch.core.privacy import PrivacyConfig
+    from repro_torch.core.session import UnlearnerConfig, UnlearnerSession
+    from repro_torch.models.simple import logreg_init, logreg_objective
+
+    out = {}
+    for where in ("cuda", "cpu"):
+        ds = binary_classification(800, 10, seed=0)
+        cfg = UnlearnerConfig(
+            steps=50, batch_size=256, lr=0.4, seed=0, algorithm=algorithm,
+            privacy=PrivacyConfig(mu=0.5, c0=0.1, c2=0.1),
+            deltagrad=dg.DeltaGradConfig(period=5, burn_in=8))
+        p0 = logreg_init(10, generator=torch.Generator().manual_seed(1))
+        sess = UnlearnerSession(logreg_objective(5e-3), p0, ds, cfg,
+                                device=where)
+        sess.fit()
+        stats = list(sess.delete([1, 2, 3, 40]).result().stats)
+        new = ds.append({k: v[:1] for k, v in ds.columns.items()})
+        stats += sess.serve_stream([("delete", 30), ("add", int(new[0]))]
+                                   ).per_request
+        out[where] = (sess.params.flat.cpu(), [s.counters() for s in stats],
+                      sess.certificate().as_dict())
+        if where == "cuda":
+            sess.save(str(tmp_path))
+            restored = UnlearnerSession.restore(
+                str(tmp_path), logreg_objective(5e-3), device=where)
+            a = sess.delete([50]).params.flat
+            b = restored.delete([50]).params.flat
+            assert a.is_cuda and torch.equal(a, b)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-5)
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][2] == out["cpu"][2]
