@@ -60,7 +60,17 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      mid-stream bitwise the uninterrupted session for each algorithm, and
      a host-tier delta_int8 session in kernel against fetch mode; then
      `from_config` on InternLM2 (2 layers, d_head 64) with flash, its
-     counters against the CPU run's.
+     counters against the CPU run's;
+ 13. the serving tier (`repro_torch.serve`): the ``unlearn`` entry point
+     in-process at the rcv1.binary shape, 12 open-loop Poisson requests of
+     mixed SLA classes at twice phase 12's serial rate with the span
+     tracer on (per-class latency, deadline misses, batch sizes, the
+     replay.scan measured/predicted ratio, the replay kernels' launches);
+     one fixed trace through the scheduler under a virtual clock on the
+     card and the CPU (same batches, counters and monitor summary); a
+     snapshot before a threaded open-loop run re-serving its batches
+     bitwise (quickstart's size); a host delta_int8 history through the
+     scheduler, kernel decode bitwise fetch decode.
 
 Phase 2 also holds the bf16 flash kernel to the reference flash's f32 P:
 its mean |err|/(1+|plain|) below a quarter of the bf16-P softmax's.
@@ -145,6 +155,17 @@ SESSION_LM = dict(reduced=dict(n_layers=2, d_model=512, n_heads=8,
                                n_kv_heads=4, d_head=64, d_ff=1024, vocab=4096),
                   docs=64, seq=128, batch=16, steps=6, lr=0.01, seed=5,
                   rows=[3, 17, 40, 61])
+# phase 13: the serving tier.  (a) the entry point at the rcv1.binary shape
+# on phase 10's recipe: 12 Poisson requests of mixed SLA classes, a burst of
+# 8; (b) a fixed trace of 10 requests, 2 tenants, add_frac 0.25, inline under
+# a virtual clock, and an open-loop threaded run at quickstart's size; (c) the
+# fixed trace's deletes on a host delta_int8 history
+SERVE = dict(requests=12, burst=8, fixed_events=10, interval_s=0.02,
+             threaded_events=16, quick_rate=100.0,
+             classes={"interactive": 0.5, "batch": 0.3, "bulk_gdpr": 0.2})
+# the sections the reference CLI writes (src/repro/launch/serve.py:252-383)
+SERVE_SECTIONS = ("config", "compile_s", "latency_ms", "accuracy",
+                  "certificate", "published_accuracy", "coalesce", "serving")
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -1003,7 +1024,11 @@ def main() -> int:
 
     # -- 12. the session surface ------------------------------------------------------
     gc_collect()
-    session_phase(torch, np, dev, kernels, rcv1)
+    serial_ms = session_phase(torch, np, dev, kernels, rcv1)
+
+    # -- 13. the serving tier ----------------------------------------------------------
+    gc_collect()
+    serve_phase(torch, np, dev, kernels, rcv1, serial_ms)
 
     # -- results ---------------------------------------------------------------------
     if FAILURES:
@@ -1490,7 +1515,7 @@ def lm_phase(torch, np, dev, kernels, profiled) -> dict:
             "dequant_sub": n_k["dequant_sub"]}
 
 
-def session_phase(torch, np, dev, kernels, rcv1: dict) -> None:
+def session_phase(torch, np, dev, kernels, rcv1: dict) -> float:
     """Phase 12: the session surface (`core.session.UnlearnerSession`).
 
     At the rcv1.binary width (phase 10's data and recipe, stacked tier):
@@ -1503,7 +1528,8 @@ def session_phase(torch, np, dev, kernels, rcv1: dict) -> None:
     snapshot mid-stream, restored and served on, bitwise the uninterrupted
     session for each algorithm, and a host-tier delta_int8 session in
     kernel mode against fetch mode.  Then `from_config` on the InternLM2
-    architecture with the flash kernel."""
+    architecture with the flash kernel.  Returns the serial stream's median
+    per-request dispatch ms at the rcv1.binary width (phase 13's rate)."""
     import dataclasses as dc
     import tempfile
 
@@ -1809,6 +1835,309 @@ def session_phase(torch, np, dev, kernels, rcv1: dict) -> None:
     if n["flash_attention"] <= 0 or n_fit["flash_attention"] <= 0:
         fail("session lm from_config: flash_attention was not launched")
     print(f"session: phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return statistics.median(dispatch)
+
+
+
+class VirtualClock:
+    """A deterministic scheduler clock: each read advances 1 ms; `t` may be
+    moved forward to an arrival."""
+
+    t = 0.0
+
+    def __call__(self):
+        self.t += 1e-3
+        return self.t
+
+
+def _drive_inline(sched, clock, events):
+    """Serve a trace inline under a virtual clock: each event submitted at
+    its arrival, the EDF policy deciding between arrivals (non-forced
+    pumps), the tail drained once every hold has run out.  Returns the
+    tickets."""
+    tickets = []
+    for ev in events:
+        clock.t = max(clock.t, ev.t)
+        tickets.append(sched.submit(op=ev.op, rows=ev.rows, data=ev.data,
+                                    tenant=ev.tenant, sla_class=ev.sla_class))
+        while sched.pump():
+            pass
+    clock.t += 10.0
+    while sched.pump():
+        pass
+    sched.drain()
+    return tickets
+
+
+def _batch_seqs(tickets):
+    """The request seqs of each batch, in batch order."""
+    out = {}
+    for tk in tickets:
+        out.setdefault(tk.req.batch_id, []).append(tk.req.seq)
+    return [out[b] for b in sorted(out)]
+
+
+def serve_phase(torch, np, dev, kernels, rcv1: dict, serial_ms: float) -> None:
+    """Phase 13: the serving tier (`repro_torch.serve`) and its traces.
+
+    (a) The ``unlearn`` entry point in-process at the rcv1.binary shape on
+    phase 10's recipe: 12 open-loop Poisson requests of mixed SLA classes
+    at twice the serial service rate phase 12 measured, with the span
+    tracer on; per-class latency, deadline misses, batch sizes, the
+    ``replay.scan`` measured/predicted ratio and the replay kernels'
+    launches.  (b) Determinism: one fixed trace through the scheduler
+    under a virtual clock, inline, on the card and on the CPU (the same
+    batches, counters and monitor summary; params within PARITY_TOL); and
+    at quickstart's size a snapshot taken before an open-loop threaded
+    run, restored, re-serves the run's logged batches inline bitwise.
+    (c) A host-tier delta_int8 history served through the scheduler in
+    kernel and fetch decode, bitwise, with the dequant pair launched."""
+    import tempfile
+
+    from repro_torch.configs.paper_logreg import RECIPE
+    from repro_torch.core.deltagrad import DeltaGradConfig
+    from repro_torch.core.session import UnlearnerConfig, UnlearnerSession
+    from repro_torch.data.dataset import Dataset
+    from repro_torch.data.synthetic import binary_classification
+    from repro_torch.launch.serve import unlearn_main
+    from repro_torch.models.simple import logreg_init, logreg_objective
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve import (LoadGenerator, QueuedRequest, ServeConfig,
+                                   ServingScheduler, fixed_trace, materialize,
+                                   poisson_trace)
+
+    t_phase = time.perf_counter()
+    L, S = LOGREG, SERVE
+    cpu = torch.device("cpu")
+
+    # -- (a) the entry point at full width, open loop ------------------------
+    rate = 2.0 / (serial_ms / 1e3)
+    print(f"serve: offered rate {rate:.4f} requests/s = 2 / phase 12's serial "
+          f"median {serial_ms:.3f} ms", flush=True)
+    obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+    with tempfile.TemporaryDirectory() as tmp:
+        bench, trace = f"{tmp}/serve.json", f"{tmp}/trace.json"
+        argv = ["--device", str(dev), "--n", str(L["n"]), "--d", str(L["d"]),
+                "--batch", str(L["batch"]), "--steps", str(L["steps"]),
+                "--lr", str(RECIPE.lr), "--l2", str(RECIPE.l2),
+                "--period", str(RECIPE.period),
+                "--burn-in", str(RECIPE.burn_in), "--seed", str(L["seed"]),
+                "--requests", str(S["requests"]), "--burst", str(S["burst"]),
+                "--trace", "poisson", "--sla-class", "mixed",
+                "--rate", repr(rate), "--bench-out", bench,
+                "--trace-out", trace]
+        t0 = time.perf_counter()
+        res, n = counted_run(kernels, lambda: unlearn_main(argv))
+        cli_s = time.perf_counter() - t0
+        with open(bench) as f:
+            written = json.load(f)
+        with open(trace) as f:
+            doc = json.load(f)
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    names = {e["name"] for e in spans}
+    sv = written.get("serving", {})
+    per_class = sv.get("per_class", {})
+    admitted = sv.get("admission", {}).get("admitted", -1)
+    served = sum(c["served"] for c in per_class.values())
+    failed = sum(c["failed"] for c in per_class.values())
+    for cls, c in sorted(per_class.items()):
+        d, e = c["dispatch_ms"], c["e2e_ms"]
+        print(f"serve rcv1 {cls}: served {c['served']} failed {c['failed']} "
+              f"deadline_misses {c['deadline_misses']}; dispatch_ms p50 "
+              f"{d.get('p50', float('nan')):.3f} p99 {d.get('p99', float('nan')):.3f}; "
+              f"e2e_ms p50 {e.get('p50', float('nan')):.3f} p99 "
+              f"{e.get('p99', float('nan')):.3f}", flush=True)
+    scans = [e["args"] for e in spans if e["name"] == "replay.scan"]
+    ratio = statistics.median(a["roofline_ratio"] for a in scans) if scans \
+        else float("nan")
+    totals = {}
+    for e in spans:
+        if e["name"].startswith(("store.", "serve.", "replay.", "online.")):
+            c, ms = totals.get(e["name"], (0, 0.0))
+            totals[e["name"]] = (c + 1, ms + e["dur"] / 1e3)
+    store = {k: v for k, v in totals.items() if k.startswith("store.")}
+    print(f"serve rcv1: batches {json.dumps(sv.get('batches'))}; "
+          f"deadline_misses_total {sv.get('deadline_misses_total')}; "
+          f"add_capacity_retraces {sv.get('add_capacity_retraces')}; admitted "
+          f"{admitted} served {served} failed {failed} rejected "
+          f"{sv.get('rejected')}; lone tail served "
+          f"{sv.get('lone_request_served')}; replay.scan {len(scans)} spans, "
+          f"median measured/predicted {ratio:.6g} (median measured_s "
+          f"{statistics.median(a['measured_s'] for a in scans) if scans else float('nan'):.6g}, "
+          f"pred_s {statistics.median(a['pred_s'] for a in scans) if scans else float('nan'):.6g}); "
+          f"store.* spans (count, ms): {json.dumps(store) if store else 'none (stacked tier)'}; "
+          f"coalesce {json.dumps(written.get('coalesce'))}; cli wall_s "
+          f"{cli_s:.2f}; launches {json.dumps(n)}", flush=True)
+    print("serve rcv1 span totals (count, ms): " + json.dumps(
+        {k: [c, round(ms, 3)] for k, (c, ms) in sorted(totals.items())})
+        + "; serve.batch (op, size, ms) in order: " + json.dumps(
+            [(e["args"]["op"], e["args"]["size"], round(e["dur"] / 1e3, 3))
+             for e in spans if e["name"] == "serve.batch"]), flush=True)
+    if set(written) != set(SERVE_SECTIONS):
+        fail(f"serve rcv1: sections {sorted(written)}, want {sorted(SERVE_SECTIONS)}")
+    if not (admitted > 0 and served == admitted and failed == 0
+            and sv.get("lone_request_served")
+            and res["config"] == written["config"]):
+        fail(f"serve rcv1: admitted {admitted}, served {served}, failed "
+             f"{failed}, lone tail {sv.get('lone_request_served')}")
+    if not {"serve.batch", "replay.scan", "replay.explicit"} <= names:
+        fail(f"serve rcv1: trace holds {sorted(names)}")
+    for k in RESIDENT:
+        if n[k] <= 0:
+            fail(f"serve rcv1: {k} was not launched")
+    gc_collect()
+
+    # -- (b) determinism: card against CPU under a virtual clock ------------
+    obj = logreg_objective(l2=RECIPE.l2)
+    p0 = logreg_init(L["d"], generator=torch.Generator().manual_seed(L["seed"]),
+                     device=cpu)
+
+    def rcv1_session(where):
+        cfg = UnlearnerConfig(
+            steps=L["steps"], batch_size=L["batch"], lr=RECIPE.lr,
+            seed=L["seed"], deltagrad=DeltaGradConfig(
+                period=RECIPE.period, burn_in=RECIPE.burn_in,
+                history_size=RECIPE.history_size))
+        s = UnlearnerSession(obj, p0, Dataset(dict(rcv1)), cfg, device=where)
+        s.fit()
+        return s
+
+    runs = {}
+    for key, where in (("card", dev), ("cpu", cpu)):
+        sess = rcv1_session(where)
+        clock = VirtualClock()
+        sched = ServingScheduler(sess, ServeConfig(add_capacity=4), clock=clock)
+        events = materialize(fixed_trace(
+            S["interval_s"], S["fixed_events"], L["seed"] + 5,
+            tenants=("tenant-a", "tenant-b"), classes=S["classes"],
+            add_frac=0.25), sess.dataset, seed=L["seed"] + 6)
+        t0 = time.perf_counter()
+        (tickets, n) = counted_run(kernels, lambda: _drive_inline(sched, clock, events))
+        wall = time.perf_counter() - t0
+        runs[key] = dict(
+            seqs=_batch_seqs(tickets), log=[(r["op"], r["rows"]) for r in sched.batch_log],
+            counters=[[x.counters() for x in e["stats"]] for e in sess.log],
+            stats=sched.stats(), w=sess.params.flat.cpu(), n=n, wall=wall,
+            errors=sum(tk.error is not None for tk in tickets))
+        del sess, sched
+        gc_collect()
+    a, b = runs["card"], runs["cpu"]
+    gap = (a["w"] - b["w"]).abs().max().item()
+    same = {k: a[k] == b[k] for k in ("seqs", "log", "counters", "stats")}
+    print(f"serve determinism rcv1 ({S['fixed_events']} fixed-trace requests, "
+          f"virtual clock, inline): batches {a['seqs']}; card vs cpu equal "
+          f"{json.dumps(same)}; max |gap| {gap:.3e} (bar {PARITY_TOL}); "
+          f"wall_s card {a['wall']:.3f} cpu {b['wall']:.3f}; launches "
+          f"{json.dumps(a['n'])}", flush=True)
+    if not (all(same.values()) and gap <= PARITY_TOL and a["errors"] == 0):
+        fail(f"serve determinism rcv1: equal {same}, gap {gap:.3e}, errors "
+             f"{a['errors']}")
+    if a["n"]["fused_update"] <= 0:
+        fail("serve determinism rcv1: fused_update was not launched")
+    del runs, a, b
+    gc_collect()
+
+    # at quickstart's size: snapshot, open-loop threaded run, restore and
+    # re-serve the logged batches inline (bitwise)
+    Q = QUICK
+    qcols = binary_classification(Q["n"], Q["d"], seed=Q["seed"]).columns
+    qobj = logreg_objective(l2=5e-3)
+    qp0 = logreg_init(Q["d"], generator=torch.Generator().manual_seed(1),
+                      device=cpu)
+
+    def qsession(dg=None, **kw):
+        cfg = UnlearnerConfig(
+            steps=Q["steps"], batch_size=Q["batch"], lr=Q["lr"], seed=Q["seed"],
+            deltagrad=DeltaGradConfig(period=Q["period"], burn_in=Q["burn_in"],
+                                      history_size=Q["m"], **(dg or {})), **kw)
+        s = UnlearnerSession(qobj, qp0, Dataset(dict(qcols)), cfg, device=dev)
+        s.fit()
+        return s
+
+    sess = qsession()
+    sched = ServingScheduler(sess, ServeConfig(add_capacity=8))
+    with tempfile.TemporaryDirectory() as tmp:
+        sched.save(tmp)
+        events = materialize(poisson_trace(
+            S["quick_rate"], S["threaded_events"], L["seed"] + 7,
+            tenants={"tenant-a": 0.6, "tenant-b": 0.4}, classes=S["classes"],
+            add_frac=0.25), sess.dataset, seed=L["seed"] + 8)
+        sched.start()
+        try:
+            res = LoadGenerator(sched).open_loop(events)
+            ok = all(tk.wait(timeout=60.0) and tk.error is None
+                     for tk in res.tickets)
+        finally:
+            sched.stop()
+        by_row = {(tk.req.op, r): tk.req for tk in res.tickets
+                  for r in tk.req.rows}
+        restored = UnlearnerSession.restore(tmp, qobj, device=dev)
+    again = ServingScheduler(restored, ServeConfig(add_capacity=8))
+    for rec in sched.batch_log:
+        reqs = []
+        for r in rec["rows"]:
+            q = by_row[(rec["op"], r)]
+            if not reqs or reqs[-1] is not q:
+                reqs.append(q)
+        again.executor.serve_batch([QueuedRequest(
+            seq=i, tenant=q.tenant, sla_class=q.sla_class, op=q.op,
+            rows=None if q.op == "add" else q.rows,
+            data=q.data if q.op == "add" else None, coalesce=q.coalesce,
+            t_enqueue=0.0, deadline=1e9) for i, q in enumerate(reqs)])
+    bitwise = torch.equal(sess.params.flat, restored.params.flat)
+    st = sched.stats()
+    print(f"serve snapshot quickstart: {len(res.tickets)} open-loop requests "
+          f"({res.rejected} rejected) at {S['quick_rate']} requests/s on the "
+          f"executor thread, batches {st['batches']['size_hist']}, all served "
+          f"without error: {ok}; the logged batches re-served inline on the "
+          f"restored snapshot bitwise: {bitwise}", flush=True)
+    if not (ok and bitwise and res.tickets):
+        fail(f"serve snapshot quickstart: served ok {ok}, bitwise {bitwise}")
+    del sess, sched, restored, again
+    gc_collect()
+
+    # -- (c) a host-tier delta_int8 history through the scheduler -------------
+    out = {}
+    for mode in ("kernel", "fetch"):
+        sess = qsession(history_tier="host", history_codec="delta_int8",
+                        dg=dict(stream_window=Q["window"], stream_decode=mode))
+        clock = VirtualClock()
+        sched = ServingScheduler(sess, ServeConfig(), clock=clock)
+        events = materialize(fixed_trace(
+            S["interval_s"], S["fixed_events"], L["seed"] + 9,
+            tenants=("tenant-a", "tenant-b"), classes=S["classes"]),
+            sess.dataset, seed=L["seed"] + 10)
+        tracer = obs_trace.enable(obs_trace.Tracer())
+        try:
+            tickets, n = counted_run(
+                kernels, lambda: _drive_inline(sched, clock, events))
+        finally:
+            obs_trace.disable()
+        stores = {}
+        for e in tracer.events():
+            if e["name"].startswith("store."):
+                c, ms = stores.get(e["name"], (0, 0.0))
+                stores[e["name"]] = (c + 1, ms + e["dur"] / 1e3)
+        out[mode] = (sess.params.flat, _batch_seqs(tickets),
+                     [[x.counters() for x in e["stats"]] for e in sess.log],
+                     n, stores, [e["stats"][0].extra.get("stream_decode")
+                                 for e in sess.log])
+        del sess, sched
+    (wk, bk, ck, nk, sk, dk), (wf, bf, cf, nf, _, df) = out["kernel"], out["fetch"]
+    bitwise = torch.equal(wk, wf) and bk == bf and ck == cf
+    print(f"serve host/delta_int8 ({S['fixed_events']} deletes through the "
+          f"scheduler): batches {bk}; kernel mode bitwise fetch mode: "
+          f"{bitwise}; stream_decode {dk[0]}/{df[0]}; store.* spans (count, "
+          f"ms) {json.dumps(sk)}; launches kernel {json.dumps(nk)} fetch "
+          f"{json.dumps(nf)}", flush=True)
+    if not bitwise:
+        fail("serve host/delta_int8: kernel mode is not bitwise fetch mode")
+    for k in ("dequant_update", "dequant_sub"):
+        if nk[k] <= 0:
+            fail(f"serve host/delta_int8 kernel: {k} was not launched")
+    print(f"serve: phase wall time {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

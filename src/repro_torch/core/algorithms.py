@@ -291,6 +291,10 @@ class DeltaGradAlgorithm(UnlearningAlgorithm):
         engine.add_capacity = max(engine.add_capacity,
                                   len(engine.added) + n_adds)
 
+    def warmup(self, specs=("delete",)) -> float:
+        self.engine().warmup(tuple(specs))
+        return self.compile_time_s
+
     def certificate(self, eps=None, delta=None) -> Certificate:
         pv = self.privacy
         eps = pv.eps if eps is None else float(eps)

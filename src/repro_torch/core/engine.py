@@ -55,6 +55,14 @@ jax's ``ravel_pytree``), so each kernel runs once per step over all of p.
 
 Precision: the entry points turn TF32 off for matmuls and cuDNN
 (`resolve_device`), because the reference computes in full f32.
+
+Observability (`repro_torch.obs`): the reference's spans at the
+reference's places, with its args — ``replay.schedule_build``,
+``replay.explicit``, ``replay.scan`` (an approx segment, with its
+roofline ``pred_s``), ``replay.guard_retry`` and ``replay.commit`` — and
+one finished replay's counters in the metrics registry.  While tracing is
+off a span is a shared no-op and the roofline is not computed; no span
+synchronises with the card.
 """
 
 from __future__ import annotations
@@ -77,6 +85,9 @@ from repro_torch.kernels.dequant_update.ops import (dequant_sub,
                                                     dequant_update)
 from repro_torch.kernels.fused_update.ops import update as fused_update
 from repro_torch.kernels.lbfgs.ops import MAX_M, lbfgs_hvp_fused
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.roofline.replay import scan_segment_cost
 from repro_torch.utils.tree import (FlatParams, tree_all_finite, tree_norm,
                                     tree_vdot)
 
@@ -163,6 +174,33 @@ class RetrainStats:
             "explicit_steps", "approx_steps", "guard_fallbacks",
             "skipped_steps", "pairs_rejected", "grad_examples",
             "grad_examples_baseline")}
+
+
+def _scan_pred(n_params: int, steps: int, r: int, m: int,
+               momentum: bool) -> Optional[float]:
+    """Roofline-predicted cost (seconds) of an approx segment, attached as
+    ``pred_s`` to ``replay.scan`` spans.  Returns None (and computes
+    nothing) while tracing is off."""
+    if not obs_trace.enabled():
+        return None
+    return scan_segment_cost(n_params, steps, r, m, momentum=momentum).pred_s
+
+
+def _publish_replay_metrics(stats: RetrainStats, store) -> None:
+    """Publish one finished replay's counters into the process-wide
+    `repro_torch.obs.metrics` registry (the contract table in `obs`)."""
+    reg = obs_metrics.get_registry()
+    own = "core.engine"
+    reg.counter("engine.replays", owner=own).inc()
+    reg.counter("engine.explicit_steps", owner=own).inc(stats.explicit_steps)
+    reg.counter("engine.approx_steps", owner=own).inc(stats.approx_steps)
+    reg.counter("engine.guard_fallbacks",
+                owner=own).inc(stats.guard_fallbacks)
+    reg.counter("engine.grad_examples", owner=own).inc(stats.grad_examples)
+    hw = store.hbm_high_water() if store is not None else 0
+    if hw:
+        reg.gauge("store.hbm_high_water_bytes", unit="B",
+                  owner="core.store").set_max(hw)
 
 
 # --------------------------------------------------------------------------
@@ -391,6 +429,14 @@ class _Steps:
                                     device=params.flat.device)
         return self._true
 
+    def scan_span(self, params: FlatParams, a: int, b: int):
+        """The ``replay.scan`` span of approx segment [a, b) (the
+        subclasses hold ``cfg``)."""
+        return obs_trace.span(
+            "replay.scan", t0=a, t1=b,
+            pred_s=_scan_pred(params.numel, b - a, self.sched.r_pad,
+                              self.cfg.history_size, bool(self.mom)))
+
     @staticmethod
     def rows(W, G, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Row i of a window as f32 (an encoded one decoded on its own)."""
@@ -443,7 +489,11 @@ class _Replay(_Steps):
         per step (True on SKIP steps, which leave the parameters as they
         are).  Plain SGD updates through `kernels.fused_update` (or, on an
         encoded window, `kernels.dequant_update`); heavy-ball through
-        `_approx_math`."""
+        `_approx_math`.  Carries the ``replay.scan`` span."""
+        with self.scan_span(params, a, b):
+            return self._segment(params, vel, a, b)
+
+    def _segment(self, params: FlatParams, vel, a: int, b: int):
         W, G, off = self.store.window(a, b)
         encoded = isinstance(W, EncodedWindow)
         dW, dG = self.buffer.stacked()
@@ -522,11 +572,13 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
     stats = RetrainStats()
 
     t_start = time.perf_counter()
-    sched = build_schedule(meta.seed, meta.steps, meta.n, meta.batch_size,
-                           changed_idx, mode, r_pad, meta.lr_at)
-    plan = build_plan(cfg, sched)
-    rp = _Replay(objective, store, ds.device_columns(dev), sched, dev, plan,
-                 cfg, B, stats)
+    cols = ds.device_columns(dev)
+    with obs_trace.span("replay.schedule_build", steps=meta.steps, r=r):
+        sched = build_schedule(meta.seed, meta.steps, meta.n,
+                               meta.batch_size, changed_idx, mode, r_pad,
+                               meta.lr_at)
+        plan = build_plan(cfg, sched)
+        rp = _Replay(objective, store, cols, sched, dev, plan, cfg, B, stats)
     if params0 is None:  # w_0, read through the store like every row
         params0 = FlatParams(store.entry(0)[0].clone(), history.shapes)
     params = params0.to(dev)
@@ -534,11 +586,15 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
     T = meta.steps
     seg_flags: List[Tuple[int, int, Optional[np.ndarray]]] = []
 
+    def explicit_step(p, v, tt):
+        with obs_trace.span("replay.explicit", t0=tt, steps=1):
+            return rp.explicit_step(p, v, tt)
+
     t = 0
     while t < T:
         code = plan[t]
         if code == EXPLICIT or (code == APPROX and len(rp.buffer) == 0):
-            params, vel = rp.explicit_step(params, vel, t)
+            params, vel = explicit_step(params, vel, t)
             t += 1
         elif code == SKIP and len(rp.buffer) == 0:
             t += 1
@@ -559,13 +615,17 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
                     fell = np.flatnonzero((plan[t:b] != SKIP) & ~oks)
                     if fell.size:
                         tf = t + int(fell[0])
-                        if tf > t:
-                            params, vel, flags_p = rp.segment(p_in, v_in, t, tf)
-                            seg_flags.append((t, tf, flags_p.cpu().numpy()))
-                        else:
-                            params, vel = p_in, v_in
-                        stats.guard_fallbacks += 1
-                        params, vel = rp.explicit_step(params, vel, tf)
+                        with obs_trace.span("replay.guard_retry", t=tf,
+                                            prefix=tf - t):
+                            if tf > t:
+                                params, vel, flags_p = rp.segment(p_in, v_in,
+                                                                  t, tf)
+                                seg_flags.append((t, tf,
+                                                  flags_p.cpu().numpy()))
+                            else:
+                                params, vel = p_in, v_in
+                            stats.guard_fallbacks += 1
+                            params, vel = explicit_step(params, vel, tf)
                         t = tf + 1
                         continue
                 seg_flags.append((t, b, oks))
@@ -600,6 +660,7 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
     if history.tier == "disk":
         stats.extra.update(spill_io_read_s=history.io_read_s,
                            spill_io_write_s=history.io_write_s)
+    _publish_replay_metrics(stats, store)
     return params, stats
 
 
@@ -669,7 +730,12 @@ class _Online(_Steps):
         step took.  Returns the
         parameters, the velocity, the rewrites and, with the guard on, one
         flag per step; the caller keeps the rewrites of an accepted
-        segment only.  SKIP steps change nothing and rewrite nothing."""
+        segment only.  SKIP steps change nothing and rewrite nothing.
+        Carries the ``replay.scan`` span."""
+        with self.scan_span(params, a, b):
+            return self._segment(params, vel, a, b)
+
+    def _segment(self, params: FlatParams, vel, a: int, b: int):
         W, G, off = self.store.window(a, b)
         encoded = isinstance(W, EncodedWindow)
         valid = ring_valid_mask(self.dW)
@@ -741,20 +807,38 @@ def run_online_request(grad_fn, store: HistoryStore, cols,
     T = meta.steps
     seg_flags: List[Tuple[int, int, Optional[np.ndarray]]] = []
     ring_started = False  # the first step that is not skipped is explicit
+    # the contiguous regions of rewritten steps, counted as the reference
+    # lands them (one assembly per region): the ``replay.commit`` arg
+    regions, write_end = 0, -1
 
-    def explicit(params, vel, t):
+    def note(t, span):
+        nonlocal regions, write_end
+        if regions == 0 or t != write_end:
+            regions += 1
+        write_end = t + span
+
+    def explicit(params, vel, t, r2):
+        """Explicit steps [t, r2), under one ``replay.explicit`` span."""
         nonlocal ring_started
+        with obs_trace.span("replay.explicit", t0=t, steps=r2 - t):
+            for tt in range(t, r2):
+                params, vel = on.explicit_step(params, vel, tt)
+                note(tt, 1)
         ring_started = True
-        stats.grad_examples += int(sched.kept[t] + sched.dB[t])
-        stats.explicit_steps += 1
-        return on.explicit_step(params, vel, t)
+        stats.grad_examples += int((sched.kept[t:r2] + sched.dB[t:r2]).sum())
+        stats.explicit_steps += r2 - t
+        return params, vel
 
     t = 0
     while t < T:
         code = plan[t]
         if code == EXPLICIT or (code == APPROX and not ring_started):
-            params, vel = explicit(params, vel, t)
-            t += 1
+            r2 = t + 1
+            if code == EXPLICIT:
+                while r2 < T and plan[r2] == EXPLICIT:
+                    r2 += 1
+            params, vel = explicit(params, vel, t, r2)
+            t = r2
         elif code == SKIP and not ring_started:
             t += 1  # the entry stays as it is
         else:
@@ -773,22 +857,28 @@ def run_online_request(grad_fn, store: HistoryStore, cols,
                     fell = np.flatnonzero((plan[t:b] != SKIP) & ~oks)
                     if fell.size:
                         tf = t + int(fell[0])
-                        if tf > t:
-                            params, vel, rw, flags_p = on.segment(p_in, v_in,
-                                                                  t, tf)
-                            on.rewrites.update(rw)
-                            seg_flags.append((t, tf, flags_p.cpu().numpy()))
-                        else:
-                            params, vel = p_in, v_in
-                        stats.guard_fallbacks += 1
-                        params, vel = explicit(params, vel, tf)
+                        with obs_trace.span("replay.guard_retry", t=tf,
+                                            prefix=tf - t):
+                            if tf > t:
+                                params, vel, rw, flags_p = on.segment(
+                                    p_in, v_in, t, tf)
+                                on.rewrites.update(rw)
+                                note(t, tf - t)
+                                seg_flags.append((t, tf,
+                                                  flags_p.cpu().numpy()))
+                            else:
+                                params, vel = p_in, v_in
+                            stats.guard_fallbacks += 1
+                            params, vel = explicit(params, vel, tf, tf + 1)
                         t = tf + 1
                         continue
                 on.rewrites.update(rw)
+                note(t, b - t)
                 seg_flags.append((t, b, oks))
                 t = b
 
-    store.commit(on.rewrites, final_params=params)
+    with obs_trace.span("replay.commit", regions=regions):
+        store.commit(on.rewrites, final_params=params)
     for t0_, t1_, oks in seg_flags:
         nonskip = plan[t0_:t1_] != SKIP
         if cfg.guard and oks is not None:
@@ -811,4 +901,5 @@ def run_online_request(grad_fn, store: HistoryStore, cols,
                            stream_decode=store.decode_mode)
     if ring_started:  # the end-of-request pair ring, for stream snapshots
         stats.extra["lbfgs_ring"] = (on.dW, on.dG)
+    _publish_replay_metrics(stats, store)
     return params, stats

@@ -24,6 +24,11 @@ a row or a group of rows, SGD or momentum, through
 `core.engine.run_online_request`, against the history served by a
 `core.store.HistoryStore`: resident, or streamed in windows from the host
 or disk tier, whose rewrites go back through the codec.
+
+Each request runs under an ``online.request`` span (op, k, and the
+whole replay's roofline ``pred_s``); `OnlineEngine.warmup` emits
+``online.warmup`` and sets the ``online.compile_time_s`` gauge, which
+reads 0.0 here (the reference compiles its request programs there).
 """
 
 from __future__ import annotations
@@ -37,13 +42,15 @@ import torch
 
 from repro_torch.core.deltagrad import Objective
 from repro_torch.core.engine import (DeltaGradConfig, RetrainStats,
-                                     _next_pow2, resolve_device,
+                                     _next_pow2, _scan_pred, resolve_device,
                                      run_online_request)
 from repro_torch.core.history import TrainingHistory
 from repro_torch.core.store import HistoryStore
 from repro_torch.data.dataset import Dataset
 from repro_torch.data.sampler import (ReplaySchedule, addition_mask_all,
                                       batch_indices_all, build_online_schedule)
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.utils.tree import FlatParams
 
 
@@ -162,6 +169,21 @@ class OnlineEngine:
 
     # -- requests ------------------------------------------------------------
 
+    def warmup(self, ops=("delete",)) -> float:
+        """The reference compiles its request programs here, on throwaway
+        requests; eager PyTorch compiles nothing, so this returns 0.0.  It
+        keeps the reference's bookkeeping: the row capacity grows to the
+        raised ``add_capacity`` (`_cols`, which also uploads the columns),
+        under an ``online.warmup`` span, and the ``online.compile_time_s``
+        gauge is set."""
+        if not self.live[:self.history.meta.n].any():
+            return 0.0
+        with obs_trace.span("online.warmup", ops=len(ops)):
+            self._cols()
+        obs_metrics.get_registry().gauge(
+            "online.compile_time_s", unit="s", owner="core.online").set(0.0)
+        return 0.0
+
     def request(self, op: str, row: int) -> RetrainStats:
         """Serve one delete or add request, rewriting the history."""
         return self.request_group(op, [int(row)])
@@ -196,8 +218,14 @@ class OnlineEngine:
                 if row in self.added:
                     raise ValueError(f"row {row} already added")
         sched = self._schedule(op, rows)
-        params, rstat = run_online_request(
-            self.grad_fn, self.store, self._cols(), sched, self.cfg)
+        meta = self.history.meta
+        # the whole replay's roofline bound (None, and not computed, while
+        # tracing is off); the tracer stamps the measured time on exit
+        pred = _scan_pred(self.params.numel, meta.steps, sched.r_pad,
+                          self.cfg.history_size, bool(meta.momentum))
+        with obs_trace.span("online.request", op=op, k=len(rows), pred_s=pred):
+            params, rstat = run_online_request(
+                self.grad_fn, self.store, self._cols(), sched, self.cfg)
         ring = rstat.extra.pop("lbfgs_ring", None)
         if ring is not None:
             self.last_ring = ring

@@ -41,11 +41,14 @@ full-batch steps per group, Gaussian certificate) and ``"retrain_oracle"``
 noise from the session's `torch.Generator` on its device, seeded from
 ``config.seed`` at first use and advanced by each publish.
 
-Not ported: the reference's auto-flush timer (`AutoFlushTimer`,
-`start_autoflush_timer`), which runs on its serving tier, and mesh
-placement (``UnlearnerConfig.placement`` must stay None).  A snapshot of
-the JAX package cannot be restored whole here (its extra payload pickles
-the reference's classes); its params shard can (`train.checkpoint`).
+The deprecated auto-flush timer (`AutoFlushTimer`,
+`start_autoflush_timer`) warns and delegates to the serving tier's
+`repro_torch.serve.SessionFlushClock`, as in the reference.
+
+Not ported: mesh placement (``UnlearnerConfig.placement`` must stay
+None).  A snapshot of the JAX package cannot be restored whole here (its
+extra payload pickles the reference's classes); its params shard can
+(`train.checkpoint`).
 
 `core.api.Unlearner` is a thin compatibility shim over this class.
 """
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -146,6 +150,25 @@ class UnlearnResponse:
     params: Any = None
 
 
+class AutoFlushTimer:
+    """DEPRECATED shim — the global auto-flush timer is superseded by the
+    serving tier (`repro_torch.serve`): `ServingScheduler` for per-SLA-class
+    deadlines, or `SessionFlushClock` for the degenerate one-class case
+    this timer implemented.  Constructing it warns and returns a
+    `SessionFlushClock` (same ``ticks``/``last_error``/``interval_s``/
+    ``stop()`` surface), so existing callers keep working."""
+
+    def __new__(cls, session: "UnlearnerSession",
+                interval_s: Optional[float] = None):
+        warnings.warn(
+            "core.session.AutoFlushTimer is deprecated; use "
+            "repro_torch.serve.SessionFlushClock (one default SLA class) or "
+            "repro_torch.serve.ServingScheduler (per-class deadlines)",
+            DeprecationWarning, stacklevel=2)
+        from repro_torch.serve.scheduler import SessionFlushClock
+        return SessionFlushClock(session, interval_s=interval_s)
+
+
 class RequestHandle:
     """Lazy handle returned by `UnlearnerSession.submit`.
 
@@ -228,6 +251,7 @@ class UnlearnerSession:
         self.autoflush_count = 0
         self.autoflush_reasons: Dict[str, int] = {"max_pending": 0,
                                                   "max_delay_s": 0}
+        self._autoflush_timer = None
         # set by from_config(): the registry Model behind the objective
         self.model: Optional[Any] = None
 
@@ -473,6 +497,29 @@ class UnlearnerSession:
         True) iff pending work has outstayed ``config.max_delay_s``."""
         with self._lock:
             return self._maybe_autoflush()
+
+    def start_autoflush_timer(self, interval_s: Optional[float] = None):
+        """DEPRECATED: drive the ``max_delay_s`` deadline from a daemon
+        tick thread.  Returns a `repro_torch.serve.SessionFlushClock` (one
+        default SLA class whose deadline is ``max_delay_s``; the old
+        timer's ``ticks``/``stop()`` surface).  New code should construct
+        `repro_torch.serve.ServingScheduler` for per-class deadlines,
+        admission control and cross-tenant batching.  Starting a new clock
+        stops the previous one."""
+        warnings.warn(
+            "session.start_autoflush_timer() is deprecated; serve through "
+            "repro_torch.serve.ServingScheduler (SLA-class deadlines) or "
+            "create repro_torch.serve.SessionFlushClock directly",
+            DeprecationWarning, stacklevel=2)
+        if self.config.max_delay_s is None:
+            raise ValueError(
+                "start_autoflush_timer() needs config.max_delay_s — there "
+                "is no deadline for the timer to enforce")
+        from repro_torch.serve.scheduler import SessionFlushClock
+        if self._autoflush_timer is not None:
+            self._autoflush_timer.stop()
+        self._autoflush_timer = SessionFlushClock(self, interval_s=interval_s)
+        return self._autoflush_timer
 
     @property
     def pending_age_s(self) -> float:

@@ -31,6 +31,11 @@ and the replay's approx steps decode one row at a time in registers
 whose windows have nothing to decode.  Both paths decode with
 `kernels.dequant_update.ref.dequant_ref`'s one expression, which keeps
 kernel-mode and fetch-mode replays bitwise equal.
+
+The streamer emits the reference's spans (``store.window_stage`` on the
+staging thread, ``store.prefetch_wait``, ``store.window``) and counters
+(``store.prefetch_hits``, ``store.host_wait_s``, ``store.windows_fetched``,
+the ``store.hbm_high_water_bytes`` gauge) into `repro_torch.obs`.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ import torch
 
 from repro_torch.core.history import TrainingHistory
 from repro_torch.kernels.dequant_update.ref import dequant_ref
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 DECODE_MODES = ("auto", "kernel", "fetch")
 # host bytes that windows staged ahead may pin at once: at an LM's p one
@@ -352,7 +359,8 @@ class SegmentStreamer(HistoryStore):
         """`_stage_window` and the staging-time EMA the prefetch depth
         follows."""
         t0 = time.perf_counter()
-        staged = self._stage_window(wid)
+        with obs_trace.span("store.window_stage", wid=wid):
+            staged = self._stage_window(wid)
         dt = time.perf_counter() - t0
         with self._lock:
             self._stack_ema = dt if self._stack_ema == 0.0 \
@@ -377,12 +385,20 @@ class SegmentStreamer(HistoryStore):
     def _fetch(self, wid: int) -> Tuple[Window, Window]:
         if wid in self._buf:
             return self._buf[wid][:2]
+        reg = obs_metrics.get_registry()
         fut = self._inflight.pop(wid, None)
         t0 = time.perf_counter()
-        staged = fut.result() if fut is not None else self._stack_host(wid)
-        self.host_wait_s += time.perf_counter() - t0
+        if fut is not None:
+            with obs_trace.span("store.prefetch_wait", wid=wid):
+                staged = fut.result()
+        else:
+            staged = self._stack_host(wid)
+        wait = time.perf_counter() - t0
+        self.host_wait_s += wait
         if fut is not None:
             self.prefetch_hits += 1
+            reg.counter("store.prefetch_hits", owner="core.store").inc()
+        reg.counter("store.host_wait_s", unit="s", owner="core.store").inc(wait)
         if self._cuda:
             compute = torch.cuda.current_stream(self.device)
             compute.wait_event(staged.event)
@@ -408,6 +424,7 @@ class SegmentStreamer(HistoryStore):
         self._buf[wid] = (W, G, nbytes)
         self._landed(staged, nbytes)
         self.windows_fetched += 1
+        reg.counter("store.windows_fetched", owner="core.store").inc()
         return W, G
 
     def _evict_before(self, wid: int) -> None:
@@ -454,7 +471,12 @@ class SegmentStreamer(HistoryStore):
         if b > self._window_bounds(wid)[1]:
             raise ValueError(f"steps [{a}, {b}) cross the window of "
                              f"{self.window_len} steps at {wid}")
-        W, G = self._acquire(wid)
+        with obs_trace.span("store.window", wid=wid,
+                            hit=wid in self._buf or wid in self._inflight):
+            W, G = self._acquire(wid)
+        obs_metrics.get_registry().gauge(
+            "store.hbm_high_water_bytes", unit="B",
+            owner="core.store").set_max(self._hbm_high)
         self._last_return_ts = time.perf_counter()
         return W, G, wid * self.window_len
 

@@ -418,3 +418,84 @@ def test_session_on_card_matches_cpu(cuda, algorithm, tmp_path):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-5)
     assert out["cuda"][1] == out["cpu"][1]
     assert out["cuda"][2] == out["cpu"][2]
+
+
+def _serving_session(where, n=800, d=64):
+    from repro_torch.core.session import UnlearnerConfig, UnlearnerSession
+    from repro_torch.models.simple import logreg_init, logreg_objective
+
+    cfg = UnlearnerConfig(steps=40, batch_size=256, lr=0.3, seed=0,
+                          deltagrad=dg.DeltaGradConfig(period=5, burn_in=8))
+    p0 = logreg_init(d, generator=torch.Generator().manual_seed(1))
+    sess = UnlearnerSession(logreg_objective(5e-3), p0,
+                            binary_classification(n, d, seed=0), cfg,
+                            device=where)
+    sess.fit()
+    return sess
+
+
+@pytest.mark.cuda
+def test_threaded_serving_on_card_is_bitwise_inline(cuda, tmp_path):
+    """The executor's thread launches on the session's device and its
+    default stream: re-serving the threaded run's logged batches inline on
+    the snapshot taken before it gives bitwise the same params."""
+    from repro_torch.core.session import UnlearnerSession
+    from repro_torch.models.simple import logreg_objective
+    from repro_torch.serve import (LoadGenerator, QueuedRequest, ServeConfig,
+                                   ServingScheduler, materialize,
+                                   poisson_trace)
+
+    sess = _serving_session(cuda)
+    sched = ServingScheduler(sess, ServeConfig(add_capacity=8))
+    sched.save(str(tmp_path))
+    ev = materialize(poisson_trace(200.0, 16, seed=6, tenants=("a", "b"),
+                                   classes=("batch", "interactive"),
+                                   add_frac=0.25),
+                     sess.dataset, seed=13)
+    sched.start()
+    try:
+        res = LoadGenerator(sched).open_loop(ev)
+        for tk in res.tickets:
+            assert tk.wait(timeout=60.0) and tk.error is None
+    finally:
+        sched.stop()
+    by_row = {(tk.req.op, r): tk.req for tk in res.tickets for r in tk.req.rows}
+    restored = UnlearnerSession.restore(str(tmp_path), logreg_objective(5e-3),
+                                        device=cuda)
+    again = ServingScheduler(restored, ServeConfig(add_capacity=8))
+    for rec in sched.batch_log:
+        reqs = []
+        for r in rec["rows"]:
+            q = by_row[(rec["op"], r)]
+            if not reqs or reqs[-1] is not q:
+                reqs.append(q)
+        batch = [QueuedRequest(seq=i, tenant=q.tenant, sla_class=q.sla_class,
+                               op=q.op, rows=None if q.op == "add" else q.rows,
+                               data=q.data if q.op == "add" else None,
+                               coalesce=q.coalesce, t_enqueue=0.0,
+                               deadline=1e9)
+                 for i, q in enumerate(reqs)]
+        again.executor.serve_batch(batch)
+    a, b = sess.params.flat, restored.params.flat
+    assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_scheduler_flush_launches_the_replay_kernels_on_card(cuda):
+    """One scheduler flush of a coalesced delete batch on the card runs
+    every approx step through fused_update, multidot and rank_update."""
+    from repro_torch.serve import ServeConfig, ServingScheduler
+
+    sess = _serving_session(cuda)
+    sched = ServingScheduler(sess, ServeConfig())
+    tickets = [sched.submit("delete", rows=[r], tenant=f"t{r % 2}",
+                            sla_class="bulk_gdpr") for r in (3, 17, 40, 99)]
+    kernels = (update, multidot, rank_update)
+    for k in kernels:
+        k.launches = 0
+    assert sched.pump(force=True) == 4
+    assert all(tk.done and tk.error is None for tk in tickets)
+    (entry,) = sess.log
+    approx = entry["stats"][0].approx_steps
+    assert approx > 0 and len(sched.batch_log) == 1
+    assert [k.launches for k in kernels] == [approx] * 3
