@@ -70,7 +70,15 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      card and the CPU (same batches, counters and monitor summary); a
      snapshot before a threaded open-loop run re-serving its batches
      bitwise (quickstart's size); a host delta_int8 history through the
-     scheduler, kernel decode bitwise fetch decode.
+     scheduler, kernel decode bitwise fetch decode;
+ 14. the LM's decode path and the train CLI: `decode_main` in-process on
+     InternLM2-1.8B at full width and all 24 layers (tokens/s, ms per
+     decode step, memory; `prefill_fn` under flash, with its launches,
+     and under blockwise against the stepped decode; a profile of the
+     decode steps), qwen3-32b at its published widths and 2 of its 64
+     layers, the card's decode against the port's CPU decode, the train
+     CLI at 2 layers resumed from step 4 and held bitwise to the
+     uninterrupted run, and its paper mode.
 
 Phase 2 also holds the bf16 flash kernel to the reference flash's f32 P:
 its mean |err|/(1+|plain|) below a quarter of the bf16-P softmax's.
@@ -166,6 +174,23 @@ SERVE = dict(requests=12, burst=8, fixed_events=10, interval_s=0.02,
 # the sections the reference CLI writes (src/repro/launch/serve.py:252-383)
 SERVE_SECTIONS = ("config", "compile_s", "latency_ms", "accuracy",
                   "certificate", "published_accuracy", "coalesce", "serving")
+# phase 14: the LM's decode path and the train CLI.  (a) `decode_main` on
+# InternLM2-1.8B at full width and all 24 layers (p = 1,889,110,016; 7.56
+# GB of f32 master weights, cast once to a 3.78 GB bf16 copy), greedy;
+# (b) qwen3-32b (QK-norm) at its published widths, 2 of its 64 layers (the
+# one cut; p = 2,531,026,432); (c) card against CPU at InternLM2's full
+# width, 2 layers; (d) the train CLI's LM mode at phase 9's cut (2 of 24
+# layers), resumed from step 4; (e) its paper mode at its defaults
+DECODE = dict(batch=16, prompt=128, gen=64, n_params=1_889_110_016)
+QWEN = dict(layers=2, batch=4, prompt=32, gen=16, n_params=2_531_026_432)
+DECODE_PARITY = dict(layers=2, batch=2, prompt=8, gen=8)
+TRAIN = dict(batch=8, seq=512, steps=8, every=4)
+# prefill against the stepped decode of the same prompt, two bf16 programs
+# that round at different places: |gap| of the logits, max and mean (the
+# JAX package's own pair reads 0.080 / 0.015 at 24 layers on the CPU)
+PREFILL_TOL = dict(max=0.25, mean=0.03)
+# the card's decode against the port's CPU decode, same bf16 weights
+DECODE_CPU_TOL = dict(max=0.1, mean=0.01)
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -960,25 +985,11 @@ def main() -> int:
 
     # -- 8. profile of the resident and of a streamed replay -----------------
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def profiled(label, history, run=None):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _, st_p = (run or (lambda: dg.deltagrad_retrain(
-                obj, history, ds, removed, cfg)))()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events() if e.device_type == DeviceType.CUDA)
-        busy_us, end_us = 0.0, float("-inf")  # union of the device's busy spans
-        for a, b in spans:
-            if b > end_us:
-                busy_us += b - max(a, end_us)
-                end_us = b
-        rows = prof.key_averages()
-        launches_host = sum(e.count for e in rows if e.key == "cudaLaunchKernel")
+        (_, st_p), prof = profile_run(torch, run or (lambda: dg.deltagrad_retrain(
+            obj, history, ds, removed, cfg)))
+        wall_ms, busy_us, rows = prof["wall_ms"], prof["busy_us"], prof["rows"]
         if busy_us <= 0:
             print(f"profile {label}: the profiler recorded no device time "
                   "(busy share not measured)")
@@ -990,7 +1001,8 @@ def main() -> int:
         print(f"profile {label}: wall_ms={wall_ms:.3f} (under the profiler) "
               f"device_busy_ms={busy_us / 1e3:.3f} "
               f"busy_share={busy_us / 1e3 / wall_ms:.3f} "
-              f"device_ops={len(spans)} cudaLaunchKernel={launches_host}{waits}")
+              f"device_ops={prof['device_ops']} "
+              f"cudaLaunchKernel={prof['launches_host']}{waits}")
         dev_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
         for e in sorted(dev_rows, key=lambda e: e.self_device_time_total,
                         reverse=True)[:12]:
@@ -1030,6 +1042,10 @@ def main() -> int:
     gc_collect()
     serve_phase(torch, np, dev, kernels, rcv1, serial_ms)
 
+    # -- 14. the LM's decode path and the train CLI ------------------------------------
+    gc_collect()
+    decode_train_phase(torch, np, dev, kernels)
+
     # -- results ---------------------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", file=sys.stderr)
@@ -1046,6 +1062,252 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def decode_train_phase(torch, np, dev, kernels) -> None:
+    """Phase 14: the LM's batched KV-cache decode and the train CLI, through
+    their entry points (`launch.serve.decode_main`, `launch.train.main`),
+    each run with the launch counts zeroed just before and read after."""
+    import dataclasses as dc
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config, register
+    from repro_torch.launch import serve, train
+    from repro_torch.models.attention_config import use_attention_impl
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.utils.tree import flatten_nested, nested
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+
+    def numel(tree):
+        return sum(x.numel() for x in flatten_nested(tree).values())
+
+    def prefill_check(label, model, res, layers):
+        prompt = torch.from_numpy(res["prompt"]).to(dev)
+        want = res["prompt_logits"]
+        for impl in ("flash", "blockwise"):
+            with use_attention_impl(impl):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, n = counted_run(kernels, lambda: model.prefill_fn(
+                    res["params"], {"tokens": prompt}))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            gap = (got - want).abs()
+            mx, mean = gap.max().item(), gap.mean().item()
+            print(f"decode {label} prefill_fn {impl}: {ms:.3f} ms for "
+                  f"{tuple(prompt.shape)} tokens; against the stepped decode's "
+                  f"last logits max |gap| {mx:.6e} mean {mean:.6e} (tol "
+                  f"{PREFILL_TOL['max']} / {PREFILL_TOL['mean']}); flash "
+                  f"launches {n['flash_attention']} | {smi}", flush=True)
+            if not (mx <= PREFILL_TOL["max"] and mean <= PREFILL_TOL["mean"]):
+                fail(f"decode {label}: prefill_fn ({impl}) against the stepped "
+                     f"decode: max {mx:.3e} mean {mean:.3e}")
+            want_launches = layers if impl == "flash" else 0
+            if n["flash_attention"] != want_launches or sum(n.values()) != want_launches:
+                fail(f"decode {label}: prefill_fn ({impl}) launched {n}, want "
+                     f"{want_launches} flash launches and nothing else")
+
+    def decode_run(label, argv, batch, gen, n_params, layers):
+        torch.cuda.reset_peak_memory_stats()
+        with use_attention_impl("flash"):
+            res, n = counted_run(kernels, lambda: serve.decode_main(argv))
+        peak = torch.cuda.max_memory_allocated()
+        p = numel(res["params"])
+        dtypes = {x.dtype for x in flatten_nested(res["params"]).values()}
+        print(f"decode {label}: p={p} ({p * 4 / 1e9:.3f} GB f32 master, cast "
+              f"once to {p * 2 / 1e9:.3f} GB bf16) B={batch} "
+              f"prompt={res['prompt'].shape[1]} gen={gen} greedy: stepped "
+              f"prefill_s={res['prefill_s']:.4f} generate_s={res['gen_s']:.4f} "
+              f"tokens/s={res['tok_s']:.2f} ms/token={res['ms_per_token']:.4f} "
+              f"(per decode step of the batch) max_memory_allocated={peak} "
+              f"launches {json.dumps(n)} | {smi}", flush=True)
+        if p != n_params or dtypes != {torch.bfloat16}:
+            fail(f"decode {label}: p = {p} in {dtypes}, want {n_params} in bf16")
+        if sum(n.values()):
+            fail(f"decode {label}: the stepped decode launched {n}; its "
+                 "attention is plain contractions")
+        ok = (res["tokens"].shape == (batch, gen)
+              and bool(torch.isfinite(res["prompt_logits"]).all())
+              and ((0 <= res["tokens"]) & (res["tokens"] < 1 << 20)).all())
+        if not ok:
+            fail(f"decode {label}: tokens {res['tokens'].shape} or logits not finite")
+        return res
+
+    # (a) InternLM2-1.8B at full width and all 24 layers
+    cfg = get_config("internlm2-1.8b")
+    res = decode_run(f"{cfg.name} {cfg.n_layers} layers",
+                     ["--arch", cfg.name, "--batch", str(DECODE["batch"]),
+                      "--prompt-len", str(DECODE["prompt"]),
+                      "--gen", str(DECODE["gen"])],
+                     DECODE["batch"], DECODE["gen"], DECODE["n_params"],
+                     cfg.n_layers)
+    prefill_check(f"{cfg.name} {cfg.n_layers} layers", build(cfg), res,
+                  cfg.n_layers)
+    # where a decode step's time goes: 8 stepped tokens under the profiler
+    steps = 8
+    _, prof = profile_run(torch, lambda: serve.generate(
+        build(cfg), res["params"], res["prompt"][:, :steps], 0, device=dev))
+    print(f"decode {cfg.name} {cfg.n_layers} layers profile, {steps} steps: "
+          f"wall_ms={prof['wall_ms']:.3f} (under the profiler) "
+          f"device_busy_ms={prof['busy_us'] / 1e3:.3f} busy_share="
+          f"{prof['busy_us'] / 1e3 / prof['wall_ms']:.3f} cudaLaunchKernel="
+          f"{prof['launches_host']} ({prof['launches_host'] / steps:.1f} a step) "
+          f"| {smi}", flush=True)
+    del res
+    gc_collect()
+
+    # (b) QK-norm at full width: qwen3-32b, 2 of its 64 layers
+    qcfg = register(dc.replace(get_config("qwen3-32b"), name="qwen3-32b-2l",
+                               n_layers=QWEN["layers"]))
+    res = decode_run(f"qwen3-32b {QWEN['layers']} of 64 layers",
+                     ["--arch", qcfg.name, "--batch", str(QWEN["batch"]),
+                      "--prompt-len", str(QWEN["prompt"]),
+                      "--gen", str(QWEN["gen"])],
+                     QWEN["batch"], QWEN["gen"], QWEN["n_params"], qcfg.n_layers)
+    prefill_check(f"qwen3-32b {QWEN['layers']} of 64 layers", build(qcfg), res,
+                  qcfg.n_layers)
+    del res
+    gc_collect()
+
+    # (c) the card against the port's CPU run, the same bf16 weights
+    pcfg = dc.replace(cfg, n_layers=DECODE_PARITY["layers"])
+    model = build(pcfg)
+    params = cast_params(nested(model.init(seed=0, device=dev)), torch.bfloat16)
+    params_cpu = {k: v.cpu() for k, v in flatten_nested(params).items()}
+    prompt = np.random.default_rng(0).integers(
+        0, pcfg.vocab, size=(DECODE_PARITY["batch"], DECODE_PARITY["prompt"]),
+        dtype=np.int32)
+    card = serve.generate(model, params, prompt, DECODE_PARITY["gen"], device=dev)
+    cpu = serve.generate(model, params_cpu, prompt, DECODE_PARITY["gen"],
+                         device="cpu")
+    gap = (card["prompt_logits"].cpu() - cpu["prompt_logits"]).abs()
+    mx, mean = gap.max().item(), gap.mean().item()
+    near = np.nonzero((card["margins"] < DECODE_CPU_TOL["max"]).any(axis=0))[0]
+    upto = int(near[0]) + 1 if len(near) else DECODE_PARITY["gen"]
+    same = np.array_equal(card["tokens"][:, :upto], cpu["tokens"][:, :upto])
+    print(f"decode card vs cpu ({pcfg.name} full width, {pcfg.n_layers} "
+          f"layers, B={DECODE_PARITY['batch']}, prompt {DECODE_PARITY['prompt']}, "
+          f"gen {DECODE_PARITY['gen']}): logits max |gap| {mx:.6e} mean "
+          f"{mean:.6e} (tol {DECODE_CPU_TOL['max']} / {DECODE_CPU_TOL['mean']}); "
+          f"greedy tokens equal through step {upto - 1} "
+          f"({'first top-2 margin under the tol at step ' + str(upto - 1) if len(near) else 'no margin under the tol'}): "
+          f"{same}; all {DECODE_PARITY['gen']} equal: "
+          f"{np.array_equal(card['tokens'], cpu['tokens'])} | {smi}", flush=True)
+    if not (mx <= DECODE_CPU_TOL["max"] and mean <= DECODE_CPU_TOL["mean"] and same):
+        fail(f"decode card vs cpu: logits max {mx:.3e} mean {mean:.3e}, "
+             f"tokens through step {upto - 1} equal: {same}")
+    del model, params, params_cpu, card, cpu
+    gc_collect()
+
+    # (d) the train CLI's LM mode at phase 9's cut, resumed from step 4
+    tcfg = register(dc.replace(cfg, name="internlm2-1.8b-2l", n_layers=LM["layers"]))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        state_bytes = 3 * LM["n_params"] * 4  # params, m, v in f32
+        free = shutil.disk_usage(ckpt_dir).free
+        print(f"train: {ckpt_dir} has {free / 1e9:.1f} GB free; a checkpoint "
+              f"is {state_bytes / 1e9:.2f} GB of npz", flush=True)
+        if free < 4 * state_bytes:
+            fail(f"train: {free / 1e9:.1f} GB free, need {4 * state_bytes / 1e9:.1f}")
+            return
+        argv = ["--arch", tcfg.name, "--batch", str(TRAIN["batch"]),
+                "--seq", str(TRAIN["seq"]), "--steps", str(TRAIN["steps"]),
+                "--ckpt", ckpt_dir, "--ckpt-every", str(TRAIN["every"]),
+                "--log-every", "1"]
+        runs = {}
+        for name in ("whole", "resumed"):
+            if name == "resumed":  # a crash after step 4's checkpoint
+                shutil.rmtree(os.path.join(ckpt_dir, f"step_{TRAIN['steps']:08d}"))
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with use_attention_impl("flash"):
+                out, n = counted_run(kernels, lambda: train.main(argv))
+            wall = time.perf_counter() - t0
+            steps = len(out["losses"])
+            runs[name] = out
+            print(f"train {name} ({tcfg.name}: p={out['state'].params.numel}, "
+                  f"B={TRAIN['batch']} S={TRAIN['seq']} AdamW warmup-cosine, "
+                  f"flash): steps {out['start']}..{TRAIN['steps'] - 1}, "
+                  f"p50 {out['timer'].percentile(0.5) * 1e3:.3f} ms/step "
+                  f"(StepTimer), loss "
+                  + " ".join(f"{s}:{v:.6f}" for s, v in sorted(out["losses"].items()))
+                  + f"; flash launches {n['flash_attention']} "
+                  f"({n['flash_attention'] / max(steps, 1):.2f}/step); "
+                  f"max_memory_allocated={torch.cuda.max_memory_allocated()}; "
+                  f"wall {wall:.2f} s with the checkpoints | {smi}", flush=True)
+            if n["flash_attention"] != LM["layers"] * steps or any(
+                    v for k, v in n.items() if k != "flash_attention"):
+                fail(f"train {name}: launches {n} for {steps} steps of "
+                     f"{LM['layers']} layers")
+        a, b = runs["whole"], runs["resumed"]
+        same = (b["start"] == TRAIN["every"]
+                and a["state"].step == b["state"].step == TRAIN["steps"]
+                and all(a["losses"][s] == b["losses"][s] for s in b["losses"])
+                and torch.equal(a["state"].params.flat, b["state"].params.flat)
+                and all(torch.equal(a["state"].opt_state[k], b["state"].opt_state[k])
+                        for k in ("m", "v")))
+        gaps = {k: (a["state"].opt_state[k] - b["state"].opt_state[k]).abs().max().item()
+                for k in ("m", "v")}
+        gaps["params"] = (a["state"].params.flat - b["state"].params.flat).abs().max().item()
+        print(f"train resume from step {b['start']}: bitwise the uninterrupted "
+              f"run: {same} (max |gap| {json.dumps(gaps)}); loss step 0 "
+              f"{a['losses'][0]:.6f}, step {TRAIN['steps'] - 1} "
+              f"{a['losses'][TRAIN['steps'] - 1]:.6f}", flush=True)
+        if not same:
+            fail(f"train: the resumed run is not bitwise the uninterrupted one {gaps}")
+        if not (np.isfinite(list(a["losses"].values())).all()
+                and a["losses"][TRAIN["steps"] - 1] < a["losses"][0]):
+            fail(f"train: losses {a['losses']}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del runs, a, b
+    gc_collect()
+
+    # (e) the train CLI's paper mode at its defaults
+    out, n = counted_run(kernels, lambda: train.main(["--arch", "paper-logreg"]))
+    print(f"train paper-logreg: acc={out['acc']:.4f} r={out['r']} "
+          f"||w_U - w_I||={out['dist']:.6e} counters {out['stats'].counters()} "
+          f"launches {json.dumps(n)} | {smi}", flush=True)
+    st = out["stats"]
+    if not (out["acc"] > 0.8 and np.isfinite(out["dist"]) and st.approx_steps > 0
+            and (st.guard_fallbacks or n["fused_update"] == st.approx_steps)):
+        fail(f"train paper-logreg: acc {out['acc']}, dist {out['dist']}, "
+             f"launches {n}")
+    print(f"decode/train: phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def profile_run(torch, fn):
+    """fn() under torch.profiler (CPU and CUDA activity): (fn's result,
+    {wall_ms, busy_us (the union of the device's busy spans), device_ops,
+    launches_host (cudaLaunchKernel calls), rows (key_averages)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end_us = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end_us:
+            busy_us += b - max(a, end_us)
+            end_us = b
+    rows = prof.key_averages()
+    return out, {"wall_ms": wall_ms, "busy_us": busy_us,
+                 "device_ops": len(spans), "rows": rows,
+                 "launches_host": sum(e.count for e in rows
+                                      if e.key == "cudaLaunchKernel")}
 
 
 def gc_collect() -> None:

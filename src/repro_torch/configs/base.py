@@ -1,4 +1,4 @@
-"""The model configuration, for the dense GQA stack.
+"""The model configuration, for the dense GQA token decoders.
 
 The port's copy of the JAX package's ``configs/base.py:ModelConfig``: the
 same field names and defaults (a test holds them field by field against
@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only LM family ported), or simple (models.simple)
+    family: str  # dense | vlm (the GQA token decoders ported) | simple
     n_layers: int
     d_model: int
     n_heads: int

@@ -9,7 +9,8 @@ from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {}
 
-_ARCH_MODULES = ["internlm2_1_8b", "paper_logreg"]
+_ARCH_MODULES = ["internlm2_1_8b", "qwen3_32b", "nemotron_4_15b",
+                 "chameleon_34b", "paper_logreg"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

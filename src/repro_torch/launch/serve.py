@@ -31,8 +31,14 @@
     computes.  ``--profile-dir`` captures a `torch.profiler` trace (CPU and,
     on the card, CUDA activity) into that directory.
 
-  * batched decode: not ported (ROADMAP.md, queue 1 item 6: the LM's
-    decode path); the mode raises `NotImplementedError`.
+  * batched decode (the default mode, the reference's flags plus
+    ``--device``): prefill a prompt batch by stepping the KV caches, then
+    generate greedily (or by ``--temperature`` sampling from a generator
+    seeded by ``--seed``):
+
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+            internlm2-1.8b --reduced --device cpu --batch 4 \
+            --prompt-len 32 --gen 16
 """
 
 from __future__ import annotations
@@ -48,10 +54,6 @@ import torch
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-
-DECODE_NOT_PORTED = (
-    "batched decode (prefill/decode_step over KV caches) is not ported yet: "
-    "ROADMAP.md, queue 1 item 6 (the LM decode path)")
 
 
 def unlearn_main(argv) -> dict:
@@ -429,8 +431,109 @@ def unlearn_main(argv) -> dict:
     return results
 
 
-def decode_main(argv=None) -> None:
-    raise NotImplementedError(DECODE_NOT_PORTED)
+def generate(model, params, prompt: np.ndarray, gen: int, *,
+             temperature: float = 0.0, seed: int = 0, device=None) -> dict:
+    """Prefill `prompt` (B, P) by stepping fresh KV caches, then generate
+    `gen` tokens: greedy, or sampled at `temperature` from a generator on
+    the device seeded by `seed`.  `params` may be bf16 already
+    (`transformer.decode_step` casts float32 leaves only).  Returns
+    ``tokens`` (B, gen) and ``margins`` (each step's top-2 logit margin)
+    as numpy, ``prompt_logits`` (the logits after the last prompt token),
+    and ``prefill_s``/``gen_s`` (host clock, each ending in a sync).  The
+    one host sync per generated token is the token's fetch, as in the
+    reference."""
+    from repro_torch.core.engine import _sync
+    from repro_torch.train.loop import make_serve_step
+
+    dev = torch.device(device)
+    batch, prompt_len = prompt.shape
+    caches = model.cache_init(batch, prompt_len + gen, device=dev)
+    decode = make_serve_step(model.decode_fn)
+    prompt_dev = torch.from_numpy(prompt).to(dev)
+
+    # prefill by stepping, as the reference's driver does (`prefill` is
+    # the model's full-sequence pass)
+    t0 = time.perf_counter()
+    logits = None
+    for t in range(prompt_len):
+        logits, caches = decode(params, {"tokens": prompt_dev[:, t:t + 1]},
+                                caches)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    prompt_logits = logits
+
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    out_tokens, margins = [], []
+    t0 = time.perf_counter()
+    for _ in range(gen):
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)
+        else:
+            nxt = torch.argmax(logits, dim=-1, keepdim=True)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        nxt = nxt.to(torch.int32)
+        out_tokens.append(nxt.cpu().numpy())
+        logits, caches = decode(params, {"tokens": nxt}, caches)
+    _sync(dev)
+    t_gen = time.perf_counter() - t0
+    return {"tokens": (np.concatenate(out_tokens, axis=1) if out_tokens
+                       else np.zeros((batch, 0), np.int32)),
+            "margins": (torch.stack(margins, dim=1).cpu().numpy() if margins
+                        else np.zeros((batch, 0), np.float32)),
+            "prompt_logits": prompt_logits, "prefill_s": t_prefill,
+            "gen_s": t_gen}
+
+
+def decode_main(argv=None) -> dict:
+    """Batched decode on random weights from ``--seed``; prints the
+    reference's two lines and returns `generate`'s results with the
+    ``prompt``, the bf16 ``params`` it decoded with, ``tok_s`` and
+    ``ms_per_token``.
+
+    The f32 master weights are cast to bf16 once, before the loop:
+    `transformer.decode_step` casts float32 leaves on every call and uses
+    bf16 ones as they are, so the logits are the same, and the f32 tree is
+    freed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import resolve_device
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.utils.tree import nested
+
+    ap = argparse.ArgumentParser(prog="serve")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default=None,
+                    help="torch device to decode on (default: the card; "
+                         "'cpu' runs the plain PyTorch path)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build(cfg)
+    params = cast_params(nested(model.init(args.seed, device=dev)),
+                         torch.bfloat16)
+    rng = np.random.default_rng(args.seed)
+    prompt = rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len),
+                          dtype=np.int32)
+    res = generate(model, params, prompt, args.gen,
+                   temperature=args.temperature, seed=args.seed, device=dev)
+    tok_s = args.batch * args.gen / max(res["gen_s"], 1e-9)
+    print(f"prefill {args.prompt_len} tok x {args.batch} in "
+          f"{res['prefill_s']:.2f}s; generated {args.gen} tok x {args.batch} "
+          f"in {res['gen_s']:.2f}s ({tok_s:.1f} tok/s)")
+    print("sample row 0:", res["tokens"][0].tolist())
+    return {**res, "prompt": prompt, "params": params, "tok_s": tok_s,
+            "ms_per_token": res["gen_s"] * 1e3 / max(args.gen, 1)}
 
 
 def main() -> None:

@@ -11,9 +11,9 @@ GQA stack.  Conventions, as there:
     (``preferred_element_type``), the port upcasts the operands: products
     of bf16 values are exact in f32, so only the order of the sum differs;
   * attention is the blockwise online softmax (a loop over KV blocks), or
-    the flash kernel where `models.attention_config` selects it.
-
-Decode attention, ``gqa_decode`` and the KV caches are not ported yet.
+    the flash kernel where `models.attention_config` selects it; one
+    decoded token attends to its KV cache with plain contractions
+    (`decode_attention`), as in the reference.
 """
 
 from __future__ import annotations
@@ -170,6 +170,31 @@ def full_attention(q, k, v, *, causal: bool = True,
     return blockwise_attention(q, k, v, causal=causal, window=window)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-token attention against a fixed-size cache.
+
+    q: (B, H, D); caches: (B, S, Hkv, D); cache_len: 0-d int tensor on the
+    caches' device, the number of valid slots (the new token's k/v already
+    written).  Scores and softmax in f32 over the whole cache, masked to
+    the valid slots and, with `window > 0`, to the last `window` of them."""
+    B, H, D = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    valid = pos < cache_len
+    if window > 0:
+        valid = valid & (pos > cache_len - 1 - window)
+    s = s.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 # --------------------------------------------------------------------------
 # GQA attention block
 # --------------------------------------------------------------------------
@@ -202,6 +227,53 @@ def gqa_apply(params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     k = apply_rope(k, positions, rope_theta)
     o = full_attention(q, k, v, causal=causal, window=window)
     return o.reshape(B, S, n_heads * d_head) @ params["wo"]
+
+
+def gqa_decode(params, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
+               n_heads: int, n_kv: int, d_head: int, rope_theta: float,
+               window: int = 0, qk_norm: bool = False):
+    """One-token decode: x (B, 1, d_model), cache ``{k, v: (B, S, Hkv, D),
+    len: 0-d int32}``; returns (out (B, 1, d_model), new cache).
+
+    The new token's k/v go to slot ``len`` through a device index, so no
+    value is read back to the host; the cache's k and v are written in
+    place (the reference's decode loop donates them to its jit) and the
+    new cache holds them with ``len + 1``.  When `window > 0` and the
+    cache holds `window` slots or fewer, it is a ring buffer: the write
+    goes to ``len % size`` and every slot written so far is valid (RoPE
+    is already in k, so the slots' order does not matter)."""
+    B = x.shape[0]
+    pos = cache["len"]
+    size = cache["k"].shape[1]
+    ring = window > 0 and size <= window
+    q = (x[:, 0] @ params["wq"]).reshape(B, n_heads, d_head)
+    k = (x[:, 0] @ params["wk"]).reshape(B, n_kv, d_head)
+    v = (x[:, 0] @ params["wv"]).reshape(B, n_kv, d_head)
+    if qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    posv = pos.expand(B, 1)
+    q = apply_rope(q[:, None], posv, rope_theta)[:, 0]
+    k = apply_rope(k[:, None], posv, rope_theta)[:, 0]
+    slot = (torch.remainder(pos, size) if ring else pos).reshape(1).long()
+    k_cache = cache["k"].index_copy_(1, slot, k[:, None].to(cache["k"].dtype))
+    v_cache = cache["v"].index_copy_(1, slot, v[:, None].to(cache["v"].dtype))
+    o = decode_attention(q, k_cache, v_cache, pos + 1,
+                         window=0 if ring else window)
+    out = o.reshape(B, 1, n_heads * d_head) @ params["wo"]
+    return out, {"k": k_cache, "v": v_cache, "len": pos + 1}
+
+
+def gqa_cache_init(batch: int, seq: int, n_kv: int, d_head: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """An empty cache of `seq` slots on `device`: k, v zeros of `dtype`,
+    len a 0-d int32 zero."""
+    return {"k": torch.zeros(batch, seq, n_kv, d_head, dtype=dtype,
+                             device=device),
+            "v": torch.zeros(batch, seq, n_kv, d_head, dtype=dtype,
+                             device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""The model facade: init, loss and objective of a configuration.
+"""The model facade: init, loss, decode and objective of a configuration.
 
-The port's copy of the JAX package's ``models/registry.py`` for the dense
-family, and the bridge that carries the JAX LM's weights across:
+The port's copy of the JAX package's ``models/registry.py`` for the GQA
+token decoders, and the bridge that carries the JAX LM's weights across:
 `params_from_jax` takes the reference's nested parameter tree (as numpy)
 and gives the port's `FlatParams`, in the same flat order.
 """
@@ -37,6 +37,22 @@ class Model:
     def per_row_loss_fn(self, params, batch, **kw) -> torch.Tensor:
         """(B,) each row's mean token loss (`transformer.lm_loss_rows`)."""
         return transformer.lm_loss_rows(params, batch, self.cfg, **kw)
+
+    def decode_fn(self, params, batch, caches, **kw):
+        """(params, batch, caches) -> (logits, caches)
+        (`transformer.decode_step`)."""
+        return transformer.decode_step(params, batch, caches, self.cfg, **kw)
+
+    def prefill_fn(self, params, batch, **kw) -> torch.Tensor:
+        """(params, batch) -> the last position's logits
+        (`transformer.prefill`)."""
+        return transformer.prefill(params, batch, self.cfg, **kw)
+
+    def cache_init(self, batch: int, seq: int, device=None):
+        """Empty KV caches (`transformer.init_caches`) on `device` (None:
+        the card)."""
+        dev = torch.device("cuda" if device is None else device)
+        return transformer.init_caches(self.cfg, batch, seq, device=dev)
 
     def objective(self, *, remat: bool = False,
                   loss_chunk: Optional[int] = None, l2: float = 0.0,

@@ -10,9 +10,12 @@ layers on a leading axis, so the flat vector is the reference's
 stacked axis; the port loops over it.  ``remat`` maps to
 ``torch.utils.checkpoint`` per layer.
 
-Only the training forward (`lm_loss`, and its per-row form
-`lm_loss_rows`) is ported; ``prefill`` and ``decode_step`` wait for the
-KV caches.
+Forward flavours, as in the reference:
+
+  * `lm_loss` (and its per-row form `lm_loss_rows`): train, full
+    sequence, chunked cross-entropy;
+  * `prefill`: full sequence, forward only, the last position's logits;
+  * `decode_step`: one token against the KV caches of `init_caches`.
 """
 
 from __future__ import annotations
@@ -27,22 +30,47 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention_config import (attention_impl,
                                                  use_attention_impl)
-from repro_torch.models.layers import (gqa_apply, gqa_init, mlp_apply,
-                                       mlp_init, rmsnorm, rmsnorm_init)
+from repro_torch.models.layers import (gqa_apply, gqa_cache_init, gqa_decode,
+                                       gqa_init, mlp_apply, mlp_init, rmsnorm,
+                                       rmsnorm_init)
 from repro_torch.utils.tree import FlatParams, flatten_nested, nested
 
 
+# what waits for which slice: ROADMAP.md queue 1 item 9, in order
+_NOT_PORTED = {
+    "moe": "the MoE family (item 9a)",
+    "mla": "multi-head latent attention (item 9b)",
+    "mamba2": "Mamba2 and the hybrid stacks (item 9c)",
+    "xlstm": "xLSTM (item 9d)",
+    "encdec": "the encoder-decoder family and its frame frontend (item 9e)",
+}
+
+
 def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
-    """(unit, n_units) of a dense stack; raises for anything else."""
+    """(unit, n_units) of a GQA token decoder whose unit is one attention
+    block, whatever its family label (the reference's `layout_of` looks
+    only at the unit); raises for every other model."""
     unit = tuple(cfg.layout_unit) if cfg.layout_unit else ("attn",)
-    if (cfg.family != "dense" or unit != ("attn",) or cfg.attention != "gqa"
-            or cfg.frontend != "tokens"):
+    if cfg.family == "audio" or cfg.frontend != "tokens":
+        missing = "encdec"
+    elif cfg.family == "moe" or cfg.mlp == "moe":
+        missing = "moe"
+    elif cfg.attention == "mla":
+        missing = "mla"
+    elif {"mamba2", "attn_shared"} & set(unit):
+        missing = "mamba2"
+    elif {"mlstm", "slstm"} & set(unit):
+        missing = "xlstm"
+    elif unit == ("attn",) and cfg.attention == "gqa":
+        return unit, cfg.n_layers
+    else:
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA stacks of token models are ported "
-            f"(family {cfg.family!r}, unit {unit}, attention "
-            f"{cfg.attention!r}); the other model families are ROADMAP.md "
-            "queue 1, 'The rest'")
-    return unit, cfg.n_layers
+            f"{cfg.name}: unit {unit}, attention {cfg.attention!r} is not a "
+            "model of the reference (ROADMAP.md queue 1 item 9)")
+    raise NotImplementedError(
+        f"{cfg.name} (family {cfg.family!r}, unit {unit}): "
+        f"{_NOT_PORTED[missing]} is not ported yet; ROADMAP.md queue 1 "
+        "item 9")
 
 
 # --------------------------------------------------------------------------
@@ -235,3 +263,78 @@ def lm_loss(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
     """The batch's mean masked token loss (the reference's `lm_loss`):
     every row has S - 1 targets, so it is the mean of `lm_loss_rows`."""
     return lm_loss_rows(params, batch, cfg, **kw).mean()
+
+
+# --------------------------------------------------------------------------
+# Serving: KV caches, one-token decode, prefill
+# --------------------------------------------------------------------------
+
+
+def _block_cache_init(cfg: ModelConfig, batch: int, seq: int,
+                      device=None) -> Dict[str, torch.Tensor]:
+    win = cfg.attn_window
+    s = min(seq, win) if win else seq
+    return gqa_cache_init(batch, s, cfg.n_kv_heads, cfg.head_dim,
+                          device=device)
+
+
+def _block_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h, cache = gqa_decode(p["mixer"], h, cache, n_heads=cfg.n_heads,
+                          n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+                          rope_theta=cfg.rope_theta, window=cfg.attn_window,
+                          qk_norm=cfg.qk_norm)
+    x = x + h
+    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp), cache
+
+
+def init_caches(cfg: ModelConfig, batch: int, seq: int,
+                device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Empty caches for every block of the unit, stacked over the units on
+    a leading axis: ``{"u0": {k, v: (n_units, B, S, Hkv, D) bf16, len:
+    (n_units,) int32}}``."""
+    unit, n_units = layout_of(cfg)
+    caches = {}
+    for pos, _ in enumerate(unit):
+        one = _block_cache_init(cfg, batch, seq, device)
+        caches[f"u{pos}"] = {k: v.expand((n_units,) + v.shape).clone()
+                             for k, v in one.items()}
+    return caches
+
+
+@torch.no_grad()
+def decode_step(params: Mapping[str, Any], batch, caches, cfg: ModelConfig,
+                *, dtype: torch.dtype = torch.bfloat16):
+    """One-token decode: batch ``{"tokens": (B, 1)}``; returns (logits (B,
+    vocab) f32, new caches).  ``params`` is flat or nested; float32 leaves
+    are cast to `dtype` on every call, as in the reference, and leaves
+    already in `dtype` are used as they are (so a caller may cast once).
+    Each layer's cache is written in place (`layers.gqa_decode`)."""
+    _, n_units = layout_of(cfg)
+    p = cast_params(nested(params), dtype)
+    x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
+    c = caches["u0"]
+    lens = []
+    for u in range(n_units):
+        x, new = _block_decode(_slice(p["u0"], u), x,
+                               {"k": c["k"][u], "v": c["v"][u],
+                                "len": c["len"][u]}, cfg)
+        lens.append(new["len"])
+    h = rmsnorm(p["final_norm"], x, cfg.norm_eps)
+    logits = _lm_head(p, h[:, 0], cfg)
+    return logits, {"u0": {"k": c["k"], "v": c["v"],
+                           "len": torch.stack(lens)}}
+
+
+@torch.no_grad()
+def prefill(params: Mapping[str, Any], batch, cfg: ModelConfig, *,
+            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inference prefill: the full-sequence forward, forward only, giving
+    the last position's logits (B, vocab) f32.  Its attention goes through
+    `layers.full_attention`, so the flash kernel takes it under
+    ``use_attention_impl("flash")``."""
+    p = cast_params(nested(params), dtype)
+    x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
+    h = forward_hidden(p, x, cfg, remat=False)
+    return _lm_head(p, h[:, -1], cfg)

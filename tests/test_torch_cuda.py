@@ -499,3 +499,65 @@ def test_scheduler_flush_launches_the_replay_kernels_on_card(cuda):
     approx = entry["stats"][0].approx_steps
     assert approx > 0 and len(sched.batch_log) == 1
     assert [k.launches for k in kernels] == [approx] * 3
+
+
+# -- the LM's decode path and the train CLI (reduced widths) ------------------------
+
+DECODE_TOL = 6e-2  # two bf16 programs' logits (tests/test_torch_decode.py)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-32b"])
+def test_decode_on_card_matches_cpu(cuda, arch):
+    """The same bf16 weights decode on the card and on the CPU: the
+    prompt's logits within 6e-2 (1e-2 mean), greedy tokens equal or first
+    parting at a top-2 margin under 6e-2; prefill under flash launches the
+    kernel once per layer and agrees with the stepped decode."""
+    from repro_torch.launch import serve
+    from repro_torch.models.attention_config import use_attention_impl
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.utils.tree import flatten_nested, nested
+
+    model = build(get_config(arch).reduced())
+    params = cast_params(nested(model.init(seed=0, device=cuda)), torch.bfloat16)
+    params_cpu = {k: v.cpu() for k, v in flatten_nested(params).items()}
+    prompt = np.random.default_rng(0).integers(0, model.cfg.vocab, size=(2, 8),
+                                               dtype=np.int32)
+    card = serve.generate(model, params, prompt, 8, device=cuda)
+    cpu = serve.generate(model, params_cpu, prompt, 8, device="cpu")
+    gap = (card["prompt_logits"].cpu() - cpu["prompt_logits"]).abs()
+    assert gap.max().item() <= DECODE_TOL and gap.mean().item() <= 1e-2
+    for row in range(2):
+        differ = np.nonzero(card["tokens"][row] != cpu["tokens"][row])[0]
+        if len(differ):
+            assert card["margins"][row, differ[0]] < DECODE_TOL
+    attention.launches = 0
+    with use_attention_impl("flash"):
+        pre = model.prefill_fn(params, {"tokens": torch.from_numpy(prompt).to(cuda)})
+    assert attention.launches == model.cfg.n_layers
+    assert (pre - card["prompt_logits"]).abs().max().item() <= DECODE_TOL
+
+
+@pytest.mark.cuda
+def test_train_cli_resume_on_card_is_bitwise(cuda, tmp_path):
+    """The train CLI (flash forward) run to step 8, its step-8 checkpoint
+    removed, and the same command re-run: it resumes at step 4 and ends
+    bitwise where the uninterrupted run did."""
+    import shutil
+
+    from repro_torch.launch import train
+    from repro_torch.models.attention_config import use_attention_impl
+
+    argv = ["--arch", "internlm2-1.8b", "--reduced", "--steps", "8", "--batch",
+            "4", "--seq", "32", "--ckpt", str(tmp_path), "--ckpt-every", "4"]
+    with use_attention_impl("flash"):
+        attention.launches = 0
+        whole = train.main(argv)
+        assert attention.launches == 8 * 2  # 8 steps x 2 layers, forward
+        shutil.rmtree(tmp_path / "step_00000008")
+        resumed = train.main(argv)
+    assert resumed["start"] == 4 and resumed["state"].step == 8
+    assert all(resumed["losses"][s] == whole["losses"][s] for s in range(4, 8))
+    assert torch.equal(whole["state"].params.flat, resumed["state"].params.flat)
+    for k in ("m", "v"):
+        assert torch.equal(whole["state"].opt_state[k], resumed["state"].opt_state[k])

@@ -1006,15 +1006,19 @@ def test_cli_writes_the_reference_key_set(tmp_path):
     assert (tmp_path / "trace.json.metrics.jsonl").exists()
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
     from repro_torch.launch import serve as launch_serve
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         launch_serve.unlearn_main(["--device", "cpu", "--impl", "python"])
-    with pytest.raises(NotImplementedError, match="decode"):
-        launch_serve.decode_main([])
-    monkeypatch.setattr("sys.argv", ["serve", "--arch", "internlm2-1.8b"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        launch_serve.main()
+    # the batched-decode mode is ported: main() without "unlearn" decodes
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "internlm2-1.8b",
+                                     "--reduced", "--device", "cpu",
+                                     "--batch", "2", "--prompt-len", "3",
+                                     "--gen", "2"])
+    launch_serve.main()
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("prefill 3 tok x 2 in ")
+    assert out[1].startswith("sample row 0: [")
     # the default results path writes nothing (no committed file is
     # overwritten from the repository root)
     assert launch_serve.unlearn_main.__module__ == "repro_torch.launch.serve"
