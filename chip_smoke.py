@@ -78,7 +78,20 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      decode steps), qwen3-32b at its published widths and 2 of its 64
      layers, the card's decode against the port's CPU decode, the train
      CLI at 2 layers resumed from step 4 and held bitwise to the
-     uninterrupted run, and its paper mode.
+     uninterrupted run, and its paper mode;
+ 15. the MoE family at its published widths: `decode_main` on
+     qwen2-moe-a2.7b (4 of 24 layers) and moonshot-v1-16b-a3b (2 of 48),
+     with `prefill_fn`'s flash launches (its gap to the stepped decode
+     recorded: the two route under different capacities by the
+     reference's design) and `prefill_fn` under flash against blockwise
+     on the rows whose last token routes alike; the card against the
+     port's CPU run (the reduced qwen2-moe in f32, one full-width
+     `moe_apply` in bf16); the objective's gradient bitwise equal across
+     two evaluations; train -> BaseL -> replay on qwen2-moe at 1 layer (p
+     = 1,192,886,272) from a host f32 history, with the replay kernels'
+     and flash's launches, and those three kernels against their plain
+     versions at that p; and the train CLI at that cut, its step-0 loss
+     split into cross-entropy and the router's aux term.
 
 Phase 2 also holds the bf16 flash kernel to the reference flash's f32 P:
 its mean |err|/(1+|plain|) below a quarter of the bf16-P softmax's.
@@ -86,6 +99,11 @@ its mean |err|/(1+|plain|) below a quarter of the bf16-P softmax's.
 It prints one JSON line of per-kernel results, then the card's name and
 power limit, and as its last line the JSON result.  It exits non-zero,
 printing no result, when a phase fails or no card is present.
+
+    python3 chip_smoke.py --moe-dg f32,6,2
+
+runs phase 15 (d) alone at another cut (compute dtype, T, j0) and records
+its replay against BaseL.
 """
 
 from __future__ import annotations
@@ -120,14 +138,18 @@ RAGGED_BOUNDS = (0, 5, 50_001, 100_003)
 REPEATS = 5  # timed BaseL / replay runs at full width
 # the flash kernel's shapes (B, S, H, Hkv, D, causal): the reference's sweep
 # (tests/test_kernels.py), the edges of the bf16 kernel's 64-row tiles
-# (S = 1, 65, 127; causal S = 512 at G = 1 and 8; non-causal S = 256) and
-# the LM's, last
+# (S = 1, 65, 127; causal S = 512 at G = 1 and 8; non-causal S = 256), the
+# MoE family's (phase 15: MHA, 16 heads of 128, G = 1) in prefill_fn of
+# qwen2-moe (16, 128) and moonshot (4, 32) and in the objective and the
+# train step (32, 512), and the LM's, last
 FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
                 (2, 100, 4, 1, 64, True), (1, 128, 2, 2, 128, False),
                 (1, 64, 4, 4, 16, True), (3, 1, 4, 2, 64, True),
                 (2, 65, 8, 2, 128, True), (1, 127, 4, 4, 32, False),
                 (1, 512, 4, 4, 64, True), (2, 512, 8, 1, 128, True),
-                (2, 256, 4, 2, 64, False), (32, 512, 16, 8, 128, True)]
+                (2, 256, 4, 2, 64, False), (16, 128, 16, 16, 128, True),
+                (4, 32, 16, 16, 128, True), (32, 512, 16, 16, 128, True),
+                (32, 512, 16, 8, 128, True)]
 FLASH_TOL = {"f32": 2e-5, "bf16": 3e-2}  # the outer, elementwise bar
 # the LM phase: InternLM2-1.8B at its published widths, 2 of its 24 layers
 LM = dict(layers=2, docs=128, seq=512, batch=32, steps=12, lr=0.01, seed=5,
@@ -191,6 +213,24 @@ TRAIN = dict(batch=8, seq=512, steps=8, every=4)
 PREFILL_TOL = dict(max=0.25, mean=0.03)
 # the card's decode against the port's CPU decode, same bf16 weights
 DECODE_CPU_TOL = dict(max=0.1, mean=0.01)
+# phase 15: the MoE family at its published widths.  (a) `decode_main` on
+# qwen2-moe-a2.7b, 4 of its 24 layers (the one cut; p = 2,904,549,376: 11.6
+# GB f32 cast once to 5.81 GB bf16; 24 layers are 57.3 GB of f32 and do not
+# fit beside the init's copies); (b) moonshot-v1-16b-a3b, 2 of its 48 layers
+# (p = 1,846,818,816); (c) card against CPU: the reduced qwen2-moe in f32,
+# one full-width MoE layer's `moe_apply` in bf16, and (recorded) the model
+# at 1 layer in bf16; (d) DeltaGrad on qwen2-moe, 1 of 24 layers (p =
+# 1,192,886,272, 4.77 GB a vector) on phase 9's recipe but for two cuts: T
+# with j0 (the host f32 history is T x 2 vectors, and the host has 96 GiB)
+# and the stream window (1 step: the card holds two windows, the L-BFGS
+# pairs and the step's gradients); at this cut the guard rejects every
+# approx step, so the replay is held to BaseL bitwise (`moe_deltagrad`);
+# (e) the train CLI at (d)'s cut
+MOE_DECODE = dict(layers=4, batch=16, prompt=128, gen=64, n_params=2_904_549_376)
+MOONSHOT = dict(layers=2, batch=4, prompt=32, gen=16, n_params=1_846_818_816)
+MOE_PARITY = dict(batch=2, prompt=8, gen=8, x=(2, 64, 2048), tol=1e-4)
+MOE_LM = dict(layers=1, n_params=1_192_886_272, steps=6, burn_in=2, window=1)
+MOE_TRAIN = dict(batch=8, seq=512, steps=4)
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -286,6 +326,32 @@ def lm_leaf_bounds() -> tuple:
     return tuple(bounds)
 
 
+def kernel_table() -> dict:
+    """Every kernel of the port: its launch-counting wrapper, its CUDA
+    source and the TPU kernel it replaces."""
+    from repro_torch.kernels.dequant_update.ops import dequant_sub, dequant_update
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.fused_update.ops import update
+    from repro_torch.kernels.lbfgs.ops import multidot, rank_update
+
+    return {
+        "fused_update": dict(wrapper=update, source="src/repro_torch/csrc/fused_update.cu",
+                             replaces="src/repro/kernels/fused_update/kernel.py:33"),
+        "multidot": dict(wrapper=multidot, source="src/repro_torch/csrc/lbfgs.cu",
+                         replaces="src/repro/kernels/lbfgs/kernel.py:55"),
+        "rank_update": dict(wrapper=rank_update, source="src/repro_torch/csrc/lbfgs.cu",
+                            replaces="src/repro/kernels/lbfgs/kernel.py:103"),
+        "dequant_update": dict(wrapper=dequant_update,
+                               source="src/repro_torch/csrc/dequant_update.cu",
+                               replaces="src/repro/kernels/dequant_update/kernel.py:68"),
+        "dequant_sub": dict(wrapper=dequant_sub,
+                            source="src/repro_torch/csrc/dequant_update.cu",
+                            replaces="src/repro/kernels/dequant_update/kernel.py:90"),
+        "flash_attention": dict(wrapper=attention,
+                                source="src/repro_torch/csrc/flash_attention.cu",
+                                replaces="src/repro/kernels/flash_attention/kernel.py:77"),
+    }
+
 def mem_available_gb() -> float:
     for line in Path("/proc/meminfo").read_text().splitlines():
         if line.startswith("MemAvailable:"):
@@ -369,23 +435,7 @@ def main() -> int:
     if len(bf16_mma) != 4 or not all(bf16_mma.values()):
         fail(f"flash_attention: bf16 instances without tensor-core MMA: {bf16_mma}")
 
-    kernels = {
-        "fused_update": dict(wrapper=update, source="src/repro_torch/csrc/fused_update.cu",
-                             replaces="src/repro/kernels/fused_update/kernel.py:33"),
-        "multidot": dict(wrapper=multidot, source="src/repro_torch/csrc/lbfgs.cu",
-                         replaces="src/repro/kernels/lbfgs/kernel.py:55"),
-        "rank_update": dict(wrapper=rank_update, source="src/repro_torch/csrc/lbfgs.cu",
-                            replaces="src/repro/kernels/lbfgs/kernel.py:103"),
-        "dequant_update": dict(wrapper=dequant_update,
-                               source="src/repro_torch/csrc/dequant_update.cu",
-                               replaces="src/repro/kernels/dequant_update/kernel.py:68"),
-        "dequant_sub": dict(wrapper=dequant_sub,
-                            source="src/repro_torch/csrc/dequant_update.cu",
-                            replaces="src/repro/kernels/dequant_update/kernel.py:90"),
-        "flash_attention": dict(wrapper=attention,
-                                source="src/repro_torch/csrc/flash_attention.cu",
-                                replaces="src/repro/kernels/flash_attention/kernel.py:77"),
-    }
+    kernels = kernel_table()
     for k in kernels.values():
         k["max_abs_err"] = 0.0
 
@@ -577,7 +627,7 @@ def main() -> int:
                 fail(f"flash_attention {what}: {worst:.3e} > {tol}")
             if not same:
                 fail(f"flash_attention {what}: two calls differ")
-            if (B, S) == (32, 512) and dtype == torch.bfloat16:
+            if (B, S, H, Hkv, D, causal) == FLASH_SHAPES[-1] and dtype == torch.bfloat16:
                 kernels["flash_attention"]["max_abs_err"] = err
                 flash_p = dict(mean=mean, max=worst, gap_mean=g_mean, gap_max=g_max)
             del q, k, v, got, ref, diff, rel
@@ -984,38 +1034,15 @@ def main() -> int:
         fail(f"parity lm reduced: gap {gap:.3e}, counters equal: {same}")
 
     # -- 8. profile of the resident and of a streamed replay -----------------
-    from torch.autograd import DeviceType
-
-    def profiled(label, history, run=None):
-        (_, st_p), prof = profile_run(torch, run or (lambda: dg.deltagrad_retrain(
-            obj, history, ds, removed, cfg)))
-        wall_ms, busy_us, rows = prof["wall_ms"], prof["busy_us"], prof["rows"]
-        if busy_us <= 0:
-            print(f"profile {label}: the profiler recorded no device time "
-                  "(busy share not measured)")
-            return
-        waits = ""
-        if "host_wait_s" in st_p.extra:
-            waits = (f" host_wait_ms={st_p.extra['host_wait_s'] * 1e3:.3f} "
-                     f"windows={st_p.extra['windows']}")
-        print(f"profile {label}: wall_ms={wall_ms:.3f} (under the profiler) "
-              f"device_busy_ms={busy_us / 1e3:.3f} "
-              f"busy_share={busy_us / 1e3 / wall_ms:.3f} "
-              f"device_ops={prof['device_ops']} "
-              f"cudaLaunchKernel={prof['launches_host']}{waits}")
-        dev_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
-        for e in sorted(dev_rows, key=lambda e: e.self_device_time_total,
-                        reverse=True)[:12]:
-            print(f"profile {label}: device {e.self_device_time_total / 1e3:9.3f} "
-                  f"ms x{e.count:<5d} {e.key[:70]}")
-
-    profiled("replay", hist)
-    profiled("streamed host/delta_int8 kernel-mode replay", stream_hist)
+    profile_replay(torch, "replay", lambda: dg.deltagrad_retrain(
+        obj, hist, ds, removed, cfg))
+    profile_replay(torch, "streamed host/delta_int8 kernel-mode replay",
+                   lambda: dg.deltagrad_retrain(obj, stream_hist, ds, removed, cfg))
 
     # -- 9. the LM path at full width --------------------------------------------
     del hist, stream_hist, streamed
     torch.cuda.empty_cache()
-    lm_launches = lm_phase(torch, np, dev, kernels, profiled)
+    lm_launches = lm_phase(torch, np, dev, kernels)
 
     # the p-length kernels ranked by their loss to the bound on the LM's
     # main path: launches x (ms - bound_ms)
@@ -1045,6 +1072,10 @@ def main() -> int:
     # -- 14. the LM's decode path and the train CLI ------------------------------------
     gc_collect()
     decode_train_phase(torch, np, dev, kernels)
+
+    # -- 15. the MoE family -------------------------------------------------------------
+    gc_collect()
+    moe_phase(torch, np, dev, kernels)
 
     # -- results ---------------------------------------------------------------------
     if FAILURES:
@@ -1083,94 +1114,21 @@ def decode_train_phase(torch, np, dev, kernels) -> None:
     t_phase = time.perf_counter()
     smi = nvidia_smi()
 
-    def numel(tree):
-        return sum(x.numel() for x in flatten_nested(tree).values())
-
-    def prefill_check(label, model, res, layers):
-        prompt = torch.from_numpy(res["prompt"]).to(dev)
-        want = res["prompt_logits"]
-        for impl in ("flash", "blockwise"):
-            with use_attention_impl(impl):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                got, n = counted_run(kernels, lambda: model.prefill_fn(
-                    res["params"], {"tokens": prompt}))
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-            gap = (got - want).abs()
-            mx, mean = gap.max().item(), gap.mean().item()
-            print(f"decode {label} prefill_fn {impl}: {ms:.3f} ms for "
-                  f"{tuple(prompt.shape)} tokens; against the stepped decode's "
-                  f"last logits max |gap| {mx:.6e} mean {mean:.6e} (tol "
-                  f"{PREFILL_TOL['max']} / {PREFILL_TOL['mean']}); flash "
-                  f"launches {n['flash_attention']} | {smi}", flush=True)
-            if not (mx <= PREFILL_TOL["max"] and mean <= PREFILL_TOL["mean"]):
-                fail(f"decode {label}: prefill_fn ({impl}) against the stepped "
-                     f"decode: max {mx:.3e} mean {mean:.3e}")
-            want_launches = layers if impl == "flash" else 0
-            if n["flash_attention"] != want_launches or sum(n.values()) != want_launches:
-                fail(f"decode {label}: prefill_fn ({impl}) launched {n}, want "
-                     f"{want_launches} flash launches and nothing else")
-
-    def decode_run(label, argv, batch, gen, n_params, layers):
-        torch.cuda.reset_peak_memory_stats()
-        with use_attention_impl("flash"):
-            res, n = counted_run(kernels, lambda: serve.decode_main(argv))
-        peak = torch.cuda.max_memory_allocated()
-        p = numel(res["params"])
-        dtypes = {x.dtype for x in flatten_nested(res["params"]).values()}
-        print(f"decode {label}: p={p} ({p * 4 / 1e9:.3f} GB f32 master, cast "
-              f"once to {p * 2 / 1e9:.3f} GB bf16) B={batch} "
-              f"prompt={res['prompt'].shape[1]} gen={gen} greedy: stepped "
-              f"prefill_s={res['prefill_s']:.4f} generate_s={res['gen_s']:.4f} "
-              f"tokens/s={res['tok_s']:.2f} ms/token={res['ms_per_token']:.4f} "
-              f"(per decode step of the batch) max_memory_allocated={peak} "
-              f"launches {json.dumps(n)} | {smi}", flush=True)
-        if p != n_params or dtypes != {torch.bfloat16}:
-            fail(f"decode {label}: p = {p} in {dtypes}, want {n_params} in bf16")
-        if sum(n.values()):
-            fail(f"decode {label}: the stepped decode launched {n}; its "
-                 "attention is plain contractions")
-        ok = (res["tokens"].shape == (batch, gen)
-              and bool(torch.isfinite(res["prompt_logits"]).all())
-              and ((0 <= res["tokens"]) & (res["tokens"] < 1 << 20)).all())
-        if not ok:
-            fail(f"decode {label}: tokens {res['tokens'].shape} or logits not finite")
-        return res
-
     # (a) InternLM2-1.8B at full width and all 24 layers
     cfg = get_config("internlm2-1.8b")
-    res = decode_run(f"{cfg.name} {cfg.n_layers} layers",
-                     ["--arch", cfg.name, "--batch", str(DECODE["batch"]),
-                      "--prompt-len", str(DECODE["prompt"]),
-                      "--gen", str(DECODE["gen"])],
-                     DECODE["batch"], DECODE["gen"], DECODE["n_params"],
-                     cfg.n_layers)
-    prefill_check(f"{cfg.name} {cfg.n_layers} layers", build(cfg), res,
-                  cfg.n_layers)
-    # where a decode step's time goes: 8 stepped tokens under the profiler
-    steps = 8
-    _, prof = profile_run(torch, lambda: serve.generate(
-        build(cfg), res["params"], res["prompt"][:, :steps], 0, device=dev))
-    print(f"decode {cfg.name} {cfg.n_layers} layers profile, {steps} steps: "
-          f"wall_ms={prof['wall_ms']:.3f} (under the profiler) "
-          f"device_busy_ms={prof['busy_us'] / 1e3:.3f} busy_share="
-          f"{prof['busy_us'] / 1e3 / prof['wall_ms']:.3f} cudaLaunchKernel="
-          f"{prof['launches_host']} ({prof['launches_host'] / steps:.1f} a step) "
-          f"| {smi}", flush=True)
+    label = f"{cfg.name} {cfg.n_layers} layers"
+    res = decode_run(torch, kernels, smi, label, cfg, DECODE)
+    prefill_check(torch, dev, kernels, smi, label, build(cfg), res, cfg.n_layers)
+    decode_profile(torch, dev, smi, label, build(cfg), res)
     del res
     gc_collect()
 
     # (b) QK-norm at full width: qwen3-32b, 2 of its 64 layers
     qcfg = register(dc.replace(get_config("qwen3-32b"), name="qwen3-32b-2l",
                                n_layers=QWEN["layers"]))
-    res = decode_run(f"qwen3-32b {QWEN['layers']} of 64 layers",
-                     ["--arch", qcfg.name, "--batch", str(QWEN["batch"]),
-                      "--prompt-len", str(QWEN["prompt"]),
-                      "--gen", str(QWEN["gen"])],
-                     QWEN["batch"], QWEN["gen"], QWEN["n_params"], qcfg.n_layers)
-    prefill_check(f"qwen3-32b {QWEN['layers']} of 64 layers", build(qcfg), res,
-                  qcfg.n_layers)
+    label = f"qwen3-32b {QWEN['layers']} of 64 layers"
+    res = decode_run(torch, kernels, smi, label, qcfg, QWEN)
+    prefill_check(torch, dev, kernels, smi, label, build(qcfg), res, qcfg.n_layers)
     del res
     gc_collect()
 
@@ -1282,6 +1240,602 @@ def decode_train_phase(torch, np, dev, kernels) -> None:
           flush=True)
 
 
+def moe_phase(torch, np, dev, kernels) -> None:
+    """Phase 15: the MoE family at full width through the model facade's
+    three paths, decode (`decode_main`), the DeltaGrad objective (train ->
+    BaseL -> replay) and the train CLI, each run with the launch counts
+    zeroed just before and read after; and the card against the port's CPU
+    run.  An MoE FFN routes each token group under its own capacity, and
+    the reference groups prefill's B*S tokens, a decode step's B and the
+    objective's rows one by one, so `prefill_fn` and the stepped decode
+    route differently by design: their gap is recorded, not held."""
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    # (d)'s replay fills the card (4.77 GB vectors: two windows, the pairs,
+    # the step's gradients); from here on segments grow in place, so the
+    # blocks earlier phases freed cannot fragment it
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    print(f"moe: MemAvailable {mem_available_gb():.1f} GiB at the start",
+          flush=True)
+    moe_decode(torch, dev, kernels, smi)
+    moe_parity(torch, np, dev, smi)
+    lcfg = moe_deltagrad(torch, np, dev, kernels, smi)
+    moe_train(torch, np, dev, kernels, smi, lcfg)
+    print(f"moe: phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def moe_decode(torch, dev, kernels, smi) -> None:
+    """15 (a), (b): `decode_main` on qwen2-moe-a2.7b at 4 layers and on
+    moonshot-v1-16b-a3b at 2, at their published widths."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config, register
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build
+
+    base = get_config("qwen2-moe-a2.7b")
+    for name, run in (("qwen2-moe-a2.7b", MOE_DECODE),
+                      ("moonshot-v1-16b-a3b", MOONSHOT)):
+        full = get_config(name)
+        cfg = register(dc.replace(full, name=f"{name}-{run['layers']}l",
+                                  n_layers=run["layers"]))
+        label = f"{name} {cfg.n_layers} of {full.n_layers} layers"
+        res = decode_run(torch, kernels, smi, label, cfg, run)
+        tokens = run["batch"] * run["prompt"]
+        print(f"decode {label}: capacity {moe.capacity_of(cfg.moe, tokens)} "
+              f"slots an expert in prefill_fn ({tokens} tokens, one group), "
+              f"{moe.capacity_of(cfg.moe, run['batch'])} in a decode step "
+              f"({run['batch']} tokens)", flush=True)
+        prefill_check(torch, dev, kernels, smi, label, build(cfg), res,
+                      cfg.n_layers, tol=None, moe_cfg=cfg.moe)
+        if cfg.name.startswith(base.name):
+            decode_profile(torch, dev, smi, label, build(cfg), res)
+        del res
+        gc_collect()
+
+
+def moe_parity(torch, np, dev, smi) -> None:
+    """15 (c): the card against the port's CPU run: the reduced
+    qwen2-moe-a2.7b decoding in f32 (held), one full-width MoE layer's
+    `moe_apply` in bf16 (held), and the full-width model at 1 layer
+    decoding in bf16 (recorded: one near-tie flip of the router changes a
+    token's whole FFN output, so two bf16 programs of the model have no
+    sound bar)."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.utils.tree import flatten_nested, nested
+
+    base = get_config("qwen2-moe-a2.7b")
+    B, P, G = MOE_PARITY["batch"], MOE_PARITY["prompt"], MOE_PARITY["gen"]
+
+    def greedy_f32(model, params, prompt, device):
+        """The stepped decode in f32 compute, greedy: (tokens, the logits
+        after the prompt and after each generated token)."""
+        toks = torch.from_numpy(prompt).to(device)
+        caches = model.cache_init(B, P + G, device=device)
+        for t in range(P):
+            logits, caches = model.decode_fn(params, {"tokens": toks[:, t:t + 1]},
+                                             caches, dtype=torch.float32)
+        seen, out = [logits], []
+        for _ in range(G):
+            nxt = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+            out.append(nxt)
+            logits, caches = model.decode_fn(params, {"tokens": nxt}, caches,
+                                             dtype=torch.float32)
+            seen.append(logits)
+        return torch.cat(out, dim=1).cpu().numpy(), torch.stack(seen).cpu()
+
+    rcfg = base.reduced()
+    rmodel = build(rcfg)
+    rp = rmodel.init(seed=0, device=dev)
+    prompt = np.random.default_rng(0).integers(0, rcfg.vocab, size=(B, P),
+                                               dtype=np.int32)
+    (tok_c, log_c), (tok_h, log_h) = (greedy_f32(rmodel, p, prompt, where)
+                                      for p, where in ((rp, dev), (rp.to("cpu"), "cpu")))
+    mx = (log_c - log_h).abs().max().item()
+    same = np.array_equal(tok_c, tok_h)
+    print(f"moe card vs cpu, reduced {base.name} in f32 (E "
+          f"{rcfg.moe.num_experts}, top-{rcfg.moe.top_k}, B {B}, {P} + {G} "
+          f"tokens): logits max |gap| {mx:.6e} (tol {MOE_PARITY['tol']}); "
+          f"greedy tokens equal: {same}", flush=True)
+    if not (mx <= MOE_PARITY["tol"] and same):
+        fail(f"moe card vs cpu reduced f32: logits {mx:.3e}, tokens equal {same}")
+
+    # the full-width model at 1 layer, bf16 weights on the card and the CPU
+    m1 = build(dc.replace(base, n_layers=1))
+    p1 = cast_params(nested(m1.init(seed=0, device=dev)), torch.bfloat16)
+    p1_cpu = {k: v.cpu() for k, v in flatten_nested(p1).items()}
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(MOE_PARITY["x"], generator=g, device=dev).to(torch.bfloat16)
+    x = x.reshape(1, -1, x.shape[-1])  # the batch as one token group
+    got = {}
+    for where, params in ((dev, p1), ("cpu", nested(p1_cpu))):
+        w = {k: v[0] for k, v in flatten_nested(params["u0"]["mlp"]).items()}
+        with torch.no_grad():
+            out, aux = moe.moe_apply(nested(w), x.to(where), base.moe)
+            idx = moe.route(nested(w), x.to(where), base.moe.top_k)[2]
+        got[where] = (out.float().cpu(), aux.cpu(), idx.cpu())
+    gap = (got[dev][0] - got["cpu"][0]).abs()
+    mx, mean = gap.max().item(), gap.mean().item()
+    same = torch.equal(got[dev][2], got["cpu"][2])
+    C = moe.capacity_of(base.moe, x.shape[1])
+    drops = int((moe.slot_ranks(got["cpu"][2].reshape(1, -1),
+                                base.moe.num_experts) >= C).sum())
+    print(f"moe card vs cpu, one {base.name} MoE layer at full width "
+          f"(moe_apply, bf16 x {MOE_PARITY['x']}, one group, capacity {C}, "
+          f"{drops} of {got['cpu'][2].numel()} choices dropped): top-k "
+          f"indices equal: {same}; out max |gap| {mx:.6e} mean {mean:.6e} (tol "
+          f"{DECODE_CPU_TOL['max']} / {DECODE_CPU_TOL['mean']}); aux "
+          f"{got[dev][1].item():.6f} / {got['cpu'][1].item():.6f}", flush=True)
+    if not (same and mx <= DECODE_CPU_TOL["max"] and mean <= DECODE_CPU_TOL["mean"]):
+        fail(f"moe card vs cpu moe_apply: indices equal {same}, max {mx:.3e} "
+             f"mean {mean:.3e}")
+
+    prompt = np.random.default_rng(0).integers(0, base.vocab, size=(B, P),
+                                               dtype=np.int32)
+    card = serve.generate(m1, p1, prompt, G, device=dev)
+    cpu = serve.generate(m1, p1_cpu, prompt, G, device="cpu")
+    gap = (card["prompt_logits"].cpu() - cpu["prompt_logits"]).abs()
+    differ = np.nonzero((card["tokens"] != cpu["tokens"]).any(axis=0))[0]
+    print(f"moe card vs cpu, {base.name} at full width, 1 layer, bf16 "
+          f"(recorded, not held): logits max |gap| {gap.max().item():.6e} mean "
+          f"{gap.mean().item():.6e}; greedy tokens equal through step "
+          f"{int(differ[0]) - 1 if len(differ) else G - 1} of {G} | {smi}",
+          flush=True)
+    del m1, p1, p1_cpu, card, cpu, got
+    gc_collect()
+
+
+def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
+                  burn_in=MOE_LM["burn_in"], dtype=None, main_path=True):
+    """15 (d): DeltaGrad on qwen2-moe-a2.7b at full width, 1 of 24 layers,
+    on phase 9's recipe (bf16 compute, flash on every forward pass): the
+    objective's gradient twice on one batch, then train -> BaseL -> replay
+    from a host f32 history.  Returns the registered 1-layer config.
+
+    The LM's bar d_ui < d_us is held when the replay took an approx step.
+    At the main path's cut the guard rejects every one (each B v's
+    ||Bv||/||v|| is past its clip), the replay is then BaseL, and that is
+    held bitwise instead: the bar is empty there.  `steps`, `burn_in`
+    and the compute `dtype` (None: the model's bf16) set another cut,
+    which `--moe-dg` runs alone (`main_path` False): its numbers are
+    recorded and the bar is not held (PERF.md section 7: on this recipe
+    the approx steps of both packages diverge on an MoE)."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config, register
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core import engine
+    from repro_torch.core.history import HistoryMeta
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build
+
+    lcfg = register(dc.replace(get_config("qwen2-moe-a2.7b"),
+                               name="qwen2-moe-a2.7b-1l", n_layers=MOE_LM["layers"]))
+    docs = token_stream(LM["docs"], LM["seq"], lcfg.vocab, seed=0)
+    meta = HistoryMeta(n=LM["docs"], batch_size=LM["batch"], seed=LM["seed"],
+                       steps=steps, lr_schedule=((0, LM["lr"]),))
+    dgc = dg.DeltaGradConfig(**{**LM_DG, "burn_in": burn_in,
+                                "stream_window": MOE_LM["window"]})
+    what = "bf16" if dtype is None else str(dtype).split(".")[-1]
+    removed = np.linspace(3, 120, 4).astype(np.int64)
+    model = build(lcfg)
+    p0 = model.init(seed=0, device=dev)
+    if p0.numel != MOE_LM["n_params"]:
+        fail(f"moe lm: p = {p0.numel}, want {MOE_LM['n_params']}")
+    print(f"moe lm: {lcfg.name} p={p0.numel} ({p0.numel * 4 / 1e9:.3f} GB a "
+          f"f32 vector) {what} compute docs={LM['docs']}x{LM['seq']} B={LM['batch']} "
+          f"T={meta.steps} T0={dgc.period} j0={dgc.burn_in} "
+          f"m={dgc.history_size} window={dgc.stream_window} "
+          f"removed={removed.tolist()}; each row its own token group of "
+          f"{LM['seq']} (capacity {moe.capacity_of(lcfg.moe, LM['seq'])}); "
+          f"the host f32 history needs {meta.steps * 2 * p0.numel * 4 / 1e9:.1f} "
+          f"GB, MemAvailable {mem_available_gb():.1f} GiB", flush=True)
+    obj = dg.Objective.from_model(model, loss_chunk=LM["loss_chunk"],
+                                  attn_impl="flash", dtype=dtype)
+    forwards = [0]
+    per_row = obj.per_example_loss
+
+    def counted(params, batch):  # one forward pass of the model per call
+        forwards[0] += 1
+        return per_row(params, batch)
+
+    obj.per_example_loss = counted
+
+    # determinism: the objective's gradient on one batch, twice
+    batch = {"tokens": docs.device_columns(dev)["tokens"][:LM["batch"]]}
+    ones = torch.ones(LM["batch"], device=dev)
+    g1 = obj.make_grad_fn()(p0, batch, ones)
+    g2 = obj.make_grad_fn()(p0, batch, ones)
+    same = torch.equal(g1, g2)
+    print(f"moe lm: the objective's gradient on {LM['batch']} rows, two "
+          f"evaluations bitwise equal: {same} (max |gap| "
+          f"{(g1 - g2).abs().max().item():.3e}; |g| {g1.norm().item():.6e})",
+          flush=True)
+    if not same:
+        fail("moe lm: two evaluations of the objective's gradient differ")
+    del g1, g2, batch
+    gc_collect()
+
+    # the card holds one p-length result beside the replay's state: BaseL
+    # runs before the replay for d_us and again after it for d_ui
+    t0 = time.perf_counter()
+    w_star, hist = dg.sgd_train_with_cache(obj, p0, docs, meta, tier="host",
+                                           codec="f32", window=dgc.stream_window)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    w_u, st_u = dg.baseline_retrain(obj, docs, meta, p0, removed)
+    d_us = (w_u.flat - w_star.flat).norm().item()
+    del w_star, w_u
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    forwards[0] = 0
+    ratios = []  # each B v's ||Bv|| / ||v|| (device scalars, read after)
+    plain_hvp = engine.lbfgs_hvp_fused
+
+    def recording(dW, dG, v, valid=None):
+        out = plain_hvp(dW, dG, v, valid)
+        ratios.append(out.norm() / v.norm())
+        return out
+
+    engine.lbfgs_hvp_fused = recording
+    try:
+        w_i, st = dg.deltagrad_retrain(obj, hist, docs, removed, dgc)
+    finally:
+        engine.lbfgs_hvp_fused = plain_hvp
+    peak = torch.cuda.max_memory_allocated()
+    n = {k: v["wrapper"].launches for k, v in kernels.items()}
+    fwd = forwards[0]
+    w_u, _ = dg.baseline_retrain(obj, docs, meta, p0, removed)
+    del p0
+    d_ui = (w_u.flat - w_i.flat).norm().item()
+    x = st.extra
+    print(f"moe lm {what} compute, f32 host: train_s={train_s:.4f} "
+          f"baseline_s={st_u.wall_time_s:.4f} replay_s={st.wall_time_s:.4f} "
+          + " ".join(f"{k}={v}" for k, v in st.counters().items())
+          + f" d_ui={d_ui:.6e} d_us={d_us:.6e} d_ui/d_us={d_ui / d_us:.4e} "
+          f"||Bv||/||v|| {' '.join(f'{r.item():.4e}' for r in ratios)} (clip "
+          f"{dgc.guard_norm_clip:g}) store={x['store']} windows={x['windows']} "
+          f"host_wait_s={x['host_wait_s']:.4f} "
+          f"hbm_high_water={x['hbm_high_water']} max_memory_allocated "
+          f"(replay)={peak} forward_passes={fwd} launches {json.dumps(n)}; "
+          f"MemAvailable {mem_available_gb():.1f} GiB with the history | {smi}",
+          flush=True)
+    if not (bool(torch.isfinite(w_i.flat).all()) and w_i.numel == MOE_LM["n_params"]):
+        fail("moe lm: replay parameters are not finite of the expected shape")
+    if not main_path:
+        print(f"moe lm {what} compute: d_ui/d_us {d_ui / d_us:.4e} after "
+              f"{st.approx_steps} approx steps (recorded, not held)", flush=True)
+    elif st.approx_steps == 0:  # every approx step fell back: the replay is BaseL
+        print(f"moe lm: no approx step was accepted, so the d_ui < d_us bar is "
+              f"empty at this cut; held instead: the replay is BaseL bitwise: "
+              f"{torch.equal(w_u.flat, w_i.flat)}", flush=True)
+        if not torch.equal(w_u.flat, w_i.flat):
+            fail(f"moe lm: no approx step, yet the replay is {d_ui:.3e} from BaseL")
+    elif not d_ui < d_us:  # the LM's f32 bar (phase 9)
+        fail(f"moe lm: d_ui {d_ui:.3e} not below d_us {d_us:.3e}")
+    if not n["flash_attention"] == MOE_LM["layers"] * fwd > 0:
+        fail(f"moe lm: flash launched {n['flash_attention']} times for {fwd} "
+             f"forward passes of {MOE_LM['layers']} layer")
+    # each approx segment launches the replay kernels; a step that trips
+    # the Algorithm-4 guard re-runs as an explicit step
+    for k in RESIDENT:
+        if n[k] <= 0 or (st.guard_fallbacks == 0 and n[k] != st.approx_steps):
+            fail(f"moe lm: {k} launched {n[k]} times for {st.approx_steps} "
+                 f"approx steps and {st.guard_fallbacks} guard fallbacks")
+    if n["dequant_update"] or n["dequant_sub"]:
+        fail("moe lm: a dequant kernel ran on the f32 (fetch-mode) path")
+    del w_i, w_u
+    gc_collect()
+    if not main_path:
+        return lcfg
+    replay_kernels_at(torch, dev, MOE_LM["n_params"])
+    profile_replay(torch, "moe lm host/f32 replay",
+                   lambda: dg.deltagrad_retrain(obj, hist, docs, removed, dgc))
+    del hist, obj, model
+    gc_collect()
+    return lcfg
+
+
+def replay_kernels_at(torch, dev, p: int, m: int = 2) -> None:
+    """The replay's three kernels against their plain versions at the
+    objective's p, f32, m pairs: fused_update and rank_update elementwise
+    (|err| / max |plain|, phase 2's 1e-5); multidot's sums per entry
+    against f64 sums taken in chunks, |err| / sum |a b|, where f32 sums of
+    p terms drift by ~eps sqrt(p / threads), so the bar is 1e-5 (phase 2's
+    1e-6 is at p = 238,510).  These are comparison launches: they do not
+    count toward any path's launches."""
+    from repro_torch.kernels.fused_update.ops import update
+    from repro_torch.kernels.fused_update.ref import deltagrad_update_ref
+    from repro_torch.kernels.lbfgs.ops import multidot, rank_update
+    from repro_torch.kernels.lbfgs.ref import multidot_ref, rank_update_ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    dW, dG = (torch.randn(m, p, generator=gen, device=dev) for _ in range(2))
+    v, w, g, gc = (torch.randn(p, generator=gen, device=dev) for _ in range(4))
+    a, b = torch.randn(m, device=dev), torch.randn(m, device=dev)
+    sigma = torch.tensor(0.5, device=dev)
+    saved = {f: f.launches for f in (update, multidot, rank_update)}
+    errs = {}
+    args = (0.01, 32.0, 4.0, 1.0)  # lr, B, the batch's deleted rows, delete
+    for name, fn, ref in (
+            ("fused_update", lambda: update(w, g, v, gc, *args),
+             lambda: deltagrad_update_ref(w, g, v, gc, *args)),
+            ("rank_update", lambda: rank_update(dW, dG, v, a, b, sigma),
+             lambda: rank_update_ref(dW, dG, v, a, b, sigma))):
+        got = fn()
+        want = ref()
+        errs[name] = ((got - want).abs().max() / want.abs().max()).item()
+        del got, want
+    sums = multidot(dW, dG, v)
+    plain = multidot_ref(dW, dG, v)
+    exact = [torch.zeros(t.shape, dtype=torch.float64, device=dev) for t in sums]
+    scale = [torch.zeros_like(t) for t in exact]
+    step = 1 << 26
+    for c in range(0, p, step):
+        w64, g64, v64 = (x[..., c:c + step].double() for x in (dW, dG, v))
+        for i, (x, y) in enumerate(((w64, w64.T), (w64, g64.T), (w64, v64), (g64, v64))):
+            exact[i] += x @ y
+            scale[i] += x.abs() @ y.abs()
+        del w64, g64, v64
+    per = [max(((s.double() - e).abs() / c).max().item()
+               for s, e, c in zip(r, exact, scale)) for r in (sums, plain)]
+    errs["multidot"] = per[0]
+    for f, n in saved.items():
+        f.launches = n
+    print(f"moe lm: the replay kernels against their plain versions at p={p}, "
+          f"m={m}, f32: fused_update rel_err={errs['fused_update']:.3e} "
+          f"rank_update rel_err={errs['rank_update']:.3e} (tol 1e-5); multidot "
+          f"per-entry |err|/sum|a*b| vs f64 = {per[0]:.3e} (plain version "
+          f"{per[1]:.3e}; tol 1e-5)", flush=True)
+    for name, e in errs.items():
+        if not e <= 1e-5:
+            fail(f"moe lm: {name} at p={p}: error {e:.3e} > 1e-5")
+    del dW, dG, v, w, g, gc, sums, plain, exact, scale
+    gc_collect()
+
+
+def moe_train(torch, np, dev, kernels, smi, lcfg) -> None:
+    """15 (e): the train CLI at (d)'s cut, no checkpoint; step 0's loss
+    split into its cross-entropy and the router's aux term."""
+    from repro_torch.data.sampler import batch_indices
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch import train
+    from repro_torch.models.attention_config import use_attention_impl
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import lm_loss_terms
+
+    argv = ["--arch", lcfg.name, "--batch", str(MOE_TRAIN["batch"]),
+            "--seq", str(MOE_TRAIN["seq"]), "--steps", str(MOE_TRAIN["steps"]),
+            "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    with use_attention_impl("flash"):
+        out, n = counted_run(kernels, lambda: train.main(argv))
+    losses, steps = out["losses"], len(out["losses"])
+    ms = out["timer"].percentile(0.5) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    gc_collect()
+    # step 0's loss term by term: the CLI's init and first batch
+    corpus = token_stream(n_docs=max(MOE_TRAIN["batch"] * 8, 64),
+                          seq_len=MOE_TRAIN["seq"], vocab=lcfg.vocab, seed=0)
+    idx = batch_indices(0, 0, corpus.n, MOE_TRAIN["batch"])
+    batch = {"tokens": torch.from_numpy(corpus.take(idx)["tokens"]).to(dev)}
+    with use_attention_impl("flash"), torch.no_grad():
+        ce, aux = (v.item() for v in lm_loss_terms(
+            build(lcfg).init(0, device=dev), batch, lcfg, remat=False,
+            loss_chunk=min(128, MOE_TRAIN["seq"])))
+    print(f"train {lcfg.name} (p={MOE_LM['n_params']}, B={MOE_TRAIN['batch']} "
+          f"S={MOE_TRAIN['seq']}, AdamW warmup-cosine, flash, no checkpoint): "
+          f"p50 {ms:.3f} ms/step (StepTimer), loss "
+          + " ".join(f"{s}:{v:.6f}" for s, v in sorted(losses.items()))
+          + f"; step 0 = cross-entropy {ce:.6f} + router aux term {aux:.6e} "
+          f"= {ce + aux:.6f}; flash launches {n['flash_attention']} "
+          f"({n['flash_attention'] / max(steps, 1):.2f}/step); "
+          f"max_memory_allocated={peak} | {smi}", flush=True)
+    if not (steps == MOE_TRAIN["steps"] and np.isfinite(list(losses.values())).all()):
+        fail(f"train {lcfg.name}: losses {losses}")
+    if not (aux > 0 and abs(ce + aux - losses[0]) <= 1e-6 * abs(losses[0])):
+        fail(f"train {lcfg.name}: step 0's loss {losses[0]} is not its "
+             f"cross-entropy {ce} + aux term {aux}")
+    if n["flash_attention"] != MOE_LM["layers"] * steps or any(
+            v for k, v in n.items() if k != "flash_attention"):
+        fail(f"train {lcfg.name}: launches {n} for {steps} steps of "
+             f"{MOE_LM['layers']} layer")
+
+
+def decode_run(torch, kernels, smi, label, cfg, run) -> dict:
+    """`launch.serve.decode_main` on `cfg` (registered) at ``run``'s batch,
+    prompt and gen under flash, with the launch counts zeroed just before
+    and read after: prints its times, memory and launches against the
+    bf16 weights' byte bound, holds p and the stepped decode's launches,
+    and returns its results."""
+    from repro_torch.launch import serve
+    from repro_torch.models.attention_config import use_attention_impl
+    from repro_torch.utils.tree import flatten_nested
+
+    argv = ["--arch", cfg.name, "--batch", str(run["batch"]),
+            "--prompt-len", str(run["prompt"]), "--gen", str(run["gen"])]
+    torch.cuda.reset_peak_memory_stats()
+    with use_attention_impl("flash"):
+        res, n = counted_run(kernels, lambda: serve.decode_main(argv))
+    peak = torch.cuda.max_memory_allocated()
+    leaves = flatten_nested(res["params"]).values()
+    p = sum(x.numel() for x in leaves)
+    dtypes = {x.dtype for x in leaves}
+    bound, _ = bound_ms(p * 2, 0.0)  # a step reads every bf16 weight once
+    print(f"decode {label}: p={p} ({p * 4 / 1e9:.3f} GB f32 master, cast "
+          f"once to {p * 2 / 1e9:.3f} GB bf16) B={run['batch']} "
+          f"prompt={res['prompt'].shape[1]} gen={run['gen']} greedy: stepped "
+          f"prefill_s={res['prefill_s']:.4f} generate_s={res['gen_s']:.4f} "
+          f"tokens/s={res['tok_s']:.2f} ms/token={res['ms_per_token']:.4f} "
+          f"(per decode step of the batch; byte bound {bound:.4f} ms) "
+          f"max_memory_allocated={peak} launches {json.dumps(n)} | {smi}",
+          flush=True)
+    if p != run["n_params"] or dtypes != {torch.bfloat16}:
+        fail(f"decode {label}: p = {p} in {dtypes}, want {run['n_params']} in bf16")
+    if sum(n.values()):
+        fail(f"decode {label}: the stepped decode launched {n}; its "
+             "attention is plain contractions")
+    ok = (res["tokens"].shape == (run["batch"], run["gen"])
+          and bool(torch.isfinite(res["prompt_logits"]).all())
+          and ((0 <= res["tokens"]) & (res["tokens"] < cfg.vocab)).all())
+    if not ok:
+        fail(f"decode {label}: tokens {res['tokens'].shape} or logits not finite")
+    return res
+
+
+def prefill_check(torch, dev, kernels, smi, label, model, res, layers,
+                  tol=PREFILL_TOL, moe_cfg=None) -> None:
+    """`prefill_fn` on `decode_run`'s prompt under flash and blockwise:
+    its time, its launches (held: one flash launch a layer under flash,
+    none under blockwise), and its last logits against the stepped
+    decode's, held to `tol` (None: recorded only).  For an MoE model
+    (`moe_cfg`) also flash against blockwise: both route the B*S tokens as
+    one group, so only the attention differs; see `moe_prefill_pair`."""
+    from repro_torch.models import moe
+    from repro_torch.models.attention_config import use_attention_impl
+
+    prompt = torch.from_numpy(res["prompt"]).to(dev)
+    want = res["prompt_logits"]
+    logits, routes = {}, {}
+    for impl in ("flash", "blockwise"):
+        with use_attention_impl(impl):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[impl], route = [], moe.route
+
+            def recording(params, x, k):  # each layer's top-k, in order
+                out = route(params, x, k)
+                routes[impl].append(out[2])
+                return out
+
+            if moe_cfg is not None:
+                moe.route = recording
+            try:
+                got, n = counted_run(kernels, lambda: model.prefill_fn(
+                    res["params"], {"tokens": prompt}))
+            finally:
+                moe.route = route
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        logits[impl] = got
+        gap = (got - want).abs()
+        mx, mean = gap.max().item(), gap.mean().item()
+        bar = (f"tol {tol['max']} / {tol['mean']}" if tol else
+               "recorded, not held")
+        print(f"decode {label} prefill_fn {impl}: {ms:.3f} ms for "
+              f"{tuple(prompt.shape)} tokens; against the stepped decode's "
+              f"last logits max |gap| {mx:.6e} mean {mean:.6e} ({bar}); flash "
+              f"launches {n['flash_attention']} | {smi}", flush=True)
+        if tol and not (mx <= tol["max"] and mean <= tol["mean"]):
+            fail(f"decode {label}: prefill_fn ({impl}) against the stepped "
+                 f"decode: max {mx:.3e} mean {mean:.3e}")
+        want_launches = layers if impl == "flash" else 0
+        if n["flash_attention"] != want_launches or sum(n.values()) != want_launches:
+            fail(f"decode {label}: prefill_fn ({impl}) launched {n}, want "
+                 f"{want_launches} flash launches and nothing else")
+    if moe_cfg is not None:
+        moe_prefill_pair(torch, smi, label, moe_cfg, logits, routes, layers)
+
+
+def moe_prefill_pair(torch, smi, label, cfg, logits, routes, layers) -> None:
+    """An MoE `prefill_fn` under flash against blockwise, the same prompt
+    and the same token group: a token whose k-th and (k+1)-th router
+    probabilities are closer than the two attentions' rounding moves them
+    routes differently (a flip: its top-k, or a choice's slot kept or
+    dropped, differs in some layer), and a flip at a row's last token
+    changes that row's whole last FFN output.  A flip also moves the
+    token's hidden state, which later tokens of its row attend to and
+    route on, so flips grow layer by layer.  Held to `PREFILL_TOL` on the
+    rows whose last token flips in no layer (there must be one); the
+    flips are counted per layer."""
+    from repro_torch.models import moe
+
+    B = logits["flash"].shape[0]
+    flips = []  # per layer: (B, S) tokens routed differently
+    for a, b in zip(routes["flash"], routes["blockwise"]):
+        G, T, k = a.shape
+        kept = [moe.slot_ranks(r.reshape(G, T * k), cfg.num_experts).reshape(
+            G, T, k) < moe.capacity_of(cfg, T) for r in (a, b)]
+        flips.append(((a != b) | (kept[0] != kept[1])).any(-1).reshape(B, -1))
+    if len(flips) != layers:
+        fail(f"decode {label}: {len(flips)} routed layers in prefill_fn, want {layers}")
+        return
+    flips = torch.stack(flips)  # (layers, B, S)
+    last = flips[:, :, -1].any(0)  # (B,) rows whose last token flips
+    gap = (logits["flash"] - logits["blockwise"]).abs().amax(-1)  # (B,)
+    mean = (logits["flash"] - logits["blockwise"]).abs().mean(-1)
+    held = ~last
+    mx_h = gap[held].max().item() if held.any() else float("nan")
+    mean_h = mean[held].mean().item() if held.any() else float("nan")
+    print(f"decode {label} prefill_fn flash vs blockwise (one group of "
+          f"{flips.shape[1] * flips.shape[2]} tokens): {int(flips.sum())} of "
+          f"{flips.numel()} token-layers routed differently (by layer "
+          f"{flips.sum((1, 2)).tolist()}), in "
+          f"{int(flips.any(0).any(-1).sum())} of {B} rows; {int(last.sum())} "
+          f"rows' last token; last logits max |gap| {gap.max().item():.6e} "
+          f"mean {mean.mean().item():.6e} over all rows, {mx_h:.6e} / "
+          f"{mean_h:.6e} over the {int(held.sum())} rows whose last token "
+          f"routes alike (tol {PREFILL_TOL['max']} / {PREFILL_TOL['mean']}) "
+          f"| {smi}", flush=True)
+    if not (held.any() and mx_h <= PREFILL_TOL["max"]
+            and mean_h <= PREFILL_TOL["mean"]):
+        fail(f"decode {label}: prefill_fn flash vs blockwise over "
+             f"{int(held.sum())} of {B} rows: max {mx_h:.3e} mean {mean_h:.3e}")
+
+
+def decode_profile(torch, dev, smi, label, model, res, steps: int = 8) -> None:
+    """Where a decode step's time goes: `steps` stepped tokens of
+    `decode_run`'s prompt under the profiler."""
+    from repro_torch.launch import serve
+
+    _, prof = profile_run(torch, lambda: serve.generate(
+        model, res["params"], res["prompt"][:, :steps], 0, device=dev))
+    print(f"decode {label} profile, {steps} steps: "
+          f"wall_ms={prof['wall_ms']:.3f} (under the profiler) "
+          f"device_busy_ms={prof['busy_us'] / 1e3:.3f} busy_share="
+          f"{prof['busy_us'] / 1e3 / prof['wall_ms']:.3f} cudaLaunchKernel="
+          f"{prof['launches_host']} ({prof['launches_host'] / steps:.1f} a step) "
+          f"| {smi}", flush=True)
+
+
+def profile_replay(torch, label: str, run) -> None:
+    """One replay (`run()` -> (params, stats)) under the profiler: its
+    device busy share, launches, host waits and top device ops."""
+    from torch.autograd import DeviceType
+
+    (_, st_p), prof = profile_run(torch, run)
+    wall_ms, busy_us, rows = prof["wall_ms"], prof["busy_us"], prof["rows"]
+    if busy_us <= 0:
+        print(f"profile {label}: the profiler recorded no device time "
+              "(busy share not measured)")
+        return
+    waits = ""
+    if "host_wait_s" in st_p.extra:
+        waits = (f" host_wait_ms={st_p.extra['host_wait_s'] * 1e3:.3f} "
+                 f"windows={st_p.extra['windows']}")
+    print(f"profile {label}: wall_ms={wall_ms:.3f} (under the profiler) "
+          f"device_busy_ms={busy_us / 1e3:.3f} "
+          f"busy_share={busy_us / 1e3 / wall_ms:.3f} "
+          f"device_ops={prof['device_ops']} "
+          f"cudaLaunchKernel={prof['launches_host']}{waits}")
+    dev_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
+    for e in sorted(dev_rows, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:12]:
+        print(f"profile {label}: device {e.self_device_time_total / 1e3:9.3f} "
+              f"ms x{e.count:<5d} {e.key[:70]}")
+
+
 def profile_run(torch, fn):
     """fn() under torch.profiler (CPU and CUDA activity): (fn's result,
     {wall_ms, busy_us (the union of the device's busy spans), device_ops,
@@ -1311,13 +1865,16 @@ def profile_run(torch, fn):
 
 
 def gc_collect() -> None:
-    """Free what an earlier phase left (host arrays, cached device blocks)."""
+    """Free what an earlier phase left: host arrays, cached device blocks
+    and cached pinned host blocks (PyTorch keeps the host tier's freed
+    staging buffers, in power-of-two sizes that a later p does not reuse)."""
     import gc
 
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
+    torch._C._host_emptyCache()
 
 
 def counted_run(kernels, fn):
@@ -1557,7 +2114,7 @@ def online_phase(torch, np, dev, kernels) -> None:
                  f"{k_run['n'][k]} times for {approx} approx steps")
 
 
-def lm_phase(torch, np, dev, kernels, profiled) -> dict:
+def lm_phase(torch, np, dev, kernels) -> dict:
     """Phase 9: InternLM2-1.8B at full width (2 layers), the flash kernel
     on every forward pass, through the three entry points.  Returns the
     p-length kernels' launches on its main path."""
@@ -1766,9 +2323,9 @@ def lm_phase(torch, np, dev, kernels, profiled) -> dict:
         fail(f"lm delta_int8: host bytes {h_c.nbytes()} not below half of "
              f"the f32 path's {f32_host_bytes}")
     del runs, w_k, w_f, w_u
-    profiled("lm host/delta_int8 kernel-mode replay", h_c,
-             lambda: dg.deltagrad_retrain(obj, h_c, docs, removed,
-                                          dc.replace(dgc, stream_decode="kernel")))
+    profile_replay(torch, "lm host/delta_int8 kernel-mode replay",
+                   lambda: dg.deltagrad_retrain(obj, h_c, docs, removed,
+                                                dc.replace(dgc, stream_decode="kernel")))
     print(f"lm: phase wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
     # the p-length kernels' launches on the LM's main path: the f32 history
     # (resident update), and the delta_int8 one in kernel mode (dequant pair)
@@ -2403,5 +2960,37 @@ def serve_phase(torch, np, dev, kernels, rcv1: dict, serial_ms: float) -> None:
           flush=True)
 
 
+def moe_dg_main(spec: str) -> int:
+    """``--moe-dg DTYPE,T,J0``: phase 15 (d) alone at another cut, the
+    compute dtype bf16 or f32, T steps and burn-in j0 (the host f32
+    history is T x 2 vectors of 4.77 GB on a 96 GiB host: T <= 8).  Its
+    numbers are recorded, not held against d_us; it exits 0 unless a check
+    that phase holds at any cut fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.kernels import _build
+
+    name, steps, burn_in = spec.split(",")
+    dtype = {"bf16": None, "f32": torch.float32}[name]
+    _build.build_all()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    # the pair solve's cuSOLVER handle, made before the replay fills the card
+    torch.linalg.solve_ex(torch.eye(2, device="cuda"), torch.ones(2, 1, device="cuda"))
+    moe_deltagrad(torch, np, torch.device("cuda"), kernel_table(), nvidia_smi(),
+                  steps=int(steps), burn_in=int(burn_in), dtype=dtype,
+                  main_path=False)
+    for f in FAILURES:
+        print(f"  {f}", file=sys.stderr)
+    return 1 if FAILURES else 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--moe-dg"] and len(sys.argv) == 3:
+        sys.exit(moe_dg_main(sys.argv[2]))
     sys.exit(main())

@@ -1,10 +1,11 @@
-"""The model configuration, for the dense GQA token decoders.
+"""The model configuration, for the GQA token decoders and the MoE family.
 
-The port's copy of the JAX package's ``configs/base.py:ModelConfig``: the
-same field names and defaults (a test holds them field by field against
-the reference's InternLM2 entry).  The fields of the other families (MLA,
-MoE, SSM, xLSTM, enc-dec, frontends) wait for the model families that read
-them; `models.transformer.layout_of` raises for a config that needs them.
+The port's copy of the JAX package's ``configs/base.py``: `ModelConfig`
+and `MoEConfig` with the same field names and defaults (tests hold them
+field by field against the reference's entries).  The fields of the other
+families (MLA, SSM, xLSTM, enc-dec, frontends) wait for the model families
+that read them; `models.transformer.layout_of` raises for a config that
+needs them.
 """
 
 from __future__ import annotations
@@ -15,9 +16,24 @@ from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 60
+    top_k: int = 4
+    d_expert: int = 1408  # per-expert FFN hidden
+    num_shared: int = 4  # shared experts (always-on)
+    d_shared: int = 5632  # shared-expert FFN hidden (total)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+    # the reference's two routes to the slot ranks ("onehot" cumsum,
+    # "sort" argsort); they give the same ranks, and the port computes
+    # both by one stable sort (`models.moe`)
+    dispatch: str = "onehot"
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm (the GQA token decoders ported) | simple
+    family: str  # dense | vlm | moe (the token decoders ported) | simple
     n_layers: int
     d_model: int
     n_heads: int
@@ -26,11 +42,12 @@ class ModelConfig:
     vocab: int
     d_head: int = 0  # 0 -> d_model // n_heads
     attention: str = "gqa"
-    mlp: str = "swiglu"  # swiglu | relu_sq | gelu
+    mlp: str = "swiglu"  # swiglu | relu_sq | gelu | moe
     qk_norm: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     # repeating block pattern of a hybrid stack; None: n_layers x ("attn",)
     layout_unit: Optional[Tuple[str, ...]] = None
     attn_window: int = 0  # sliding window of attention layers; 0 = full
@@ -44,7 +61,8 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
-        defaults for a dense stack), with `overrides` on top."""
+        defaults: a dense stack, and for MoE 8 experts, top-2), with
+        `overrides` on top."""
         small = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -54,5 +72,10 @@ class ModelConfig:
             vocab=256,
             d_head=16,
         )
+        if self.moe:
+            small["moe"] = dataclasses.replace(
+                self.moe, num_experts=8, top_k=2, d_expert=32,
+                num_shared=min(self.moe.num_shared, 2), d_shared=64,
+            )
         small.update(overrides)
         return dataclasses.replace(self, **small)

@@ -10,7 +10,8 @@ from repro_torch.configs.base import ModelConfig
 ARCHS: Dict[str, ModelConfig] = {}
 
 _ARCH_MODULES = ["internlm2_1_8b", "qwen3_32b", "nemotron_4_15b",
-                 "chameleon_34b", "paper_logreg"]
+                 "chameleon_34b", "qwen2_moe_a2_7b", "moonshot_v1_16b_a3b",
+                 "paper_logreg"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

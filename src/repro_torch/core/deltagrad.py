@@ -79,10 +79,15 @@ class Objective:
                    dtype: Optional[torch.dtype] = None) -> "Objective":
         """An Objective over a `models.registry.Model`'s LM loss.
 
-        Row i's loss is the model's mean masked token loss on document i
-        alone.  The reference builds that with ``jax.vmap`` over batch-1
-        slices; here one batched forward gives every row's value
-        (`Model.per_row_loss_fn`), since rows never mix in the model.
+        Row i's loss is the model's loss on the batch of document i
+        alone: its mean masked token loss and, for an MoE model, the
+        router's aux term with row i routed as its own token group.  The
+        reference builds that with ``jax.vmap`` over batch-1 slices; here
+        one batched forward gives every row's value
+        (`Model.per_row_loss_fn`): rows never mix in attention, and the
+        MoE FFN routes each row under its own capacity, so row i's loss
+        does not depend on the other rows of its batch, which is what
+        DeltaGrad's subtraction of the changed rows' gradients needs.
         ``remat`` and ``loss_chunk`` go to the loss (per-layer activation
         checkpointing, the logits' chunk); ``dtype`` is the compute dtype
         (None: the model's bf16).  ``attn_impl`` pins

@@ -471,8 +471,12 @@ class _Replay(_Steps):
         else:  # add
             g_full = g_kept
             g_step = (B * g_kept + dB * g_changed) / (B + dB)
+        # drop each p-length gradient once it is read (at an LM's p each
+        # is gigabytes of the card's peak)
+        del g_kept, g_changed
         dw = params.flat - w_t
         dg = g_full - g_t
+        del g_full
         curv, ss = torch.stack([tree_vdot(dg, dw), tree_vdot(dw, dw)]).tolist()
         if not self.buffer.add_pair(dw, dg, curv, ss):
             self.stats.pairs_rejected += 1

@@ -8,7 +8,7 @@ makes DeltaGrad's schedule replay well-defined.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,6 +61,27 @@ class Dataset:
     def remaining_indices(self) -> np.ndarray:
         return np.nonzero(~self.removed)[0]
 
+    @property
+    def removed_indices(self) -> np.ndarray:
+        return np.nonzero(self.removed)[0]
+
+    # -- mutation ------------------------------------------------------------
+
+    def delete(self, idx: Iterable[int]) -> np.ndarray:
+        """Mark rows deleted (they keep their index); raises if any is
+        deleted already."""
+        idx = np.asarray(list(idx), dtype=np.int64)
+        already = self.removed[idx]
+        if already.any():
+            raise ValueError(f"rows already deleted: {idx[already]}")
+        self.removed[idx] = True
+        return idx
+
+    def undelete(self, idx: Iterable[int]) -> np.ndarray:
+        idx = np.asarray(list(idx), dtype=np.int64)
+        self.removed[idx] = False
+        return idx
+
     def append(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
         """Physically append new rows; returns their indices."""
         m = len(next(iter(rows.values())))
@@ -82,3 +103,17 @@ class Dataset:
         weights = np.concatenate(
             [np.ones(k, dtype=np.float32), np.zeros(pad_to - k, dtype=np.float32)])
         return self.take(full_idx), weights
+
+    def split_batch(self, idx: np.ndarray, removed_set: Optional[np.ndarray] = None):
+        """Split a replayed batch into (kept_idx, removed_idx) against the
+        deletion mask (or an explicit removed index set)."""
+        if removed_set is None:
+            mask = self.removed[idx]
+        else:
+            mask = np.isin(idx, removed_set)
+        return idx[~mask], idx[mask]
+
+
+def subset(ds: Dataset, idx: Sequence[int]) -> Dataset:
+    """A new Dataset of rows `idx` of `ds` (copies; no rows deleted)."""
+    return Dataset({k: v[np.asarray(idx)] for k, v in ds.columns.items()})

@@ -1,7 +1,8 @@
 """The model facade: init, loss, decode and objective of a configuration.
 
 The port's copy of the JAX package's ``models/registry.py`` for the GQA
-token decoders, and the bridge that carries the JAX LM's weights across:
+token decoders and the MoE family, and the bridge that carries the JAX
+LM's weights across:
 `params_from_jax` takes the reference's nested parameter tree (as numpy)
 and gives the port's `FlatParams`, in the same flat order.
 """
@@ -31,11 +32,13 @@ class Model:
             self.cfg, torch.Generator(device=dev).manual_seed(seed))
 
     def loss_fn(self, params, batch, **kw) -> torch.Tensor:
-        """The batch's mean token loss (`transformer.lm_loss`)."""
+        """The batch's mean token loss, plus an MoE router's aux term
+        (`transformer.lm_loss`)."""
         return transformer.lm_loss(params, batch, self.cfg, **kw)
 
     def per_row_loss_fn(self, params, batch, **kw) -> torch.Tensor:
-        """(B,) each row's mean token loss (`transformer.lm_loss_rows`)."""
+        """(B,) each row's loss, as the batch loss of that row alone
+        (`transformer.lm_loss_rows`)."""
         return transformer.lm_loss_rows(params, batch, self.cfg, **kw)
 
     def decode_fn(self, params, batch, caches, **kw):
@@ -73,6 +76,18 @@ def build(cfg: ModelConfig) -> Model:
 def count_params(cfg: ModelConfig) -> int:
     """Analytic parameter count (no allocation)."""
     return sum(math.prod(s) for s in transformer.param_shapes(cfg).values())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """MoE: parameters touched per token (routed top-k of E + shared +
+    dense); the total for a dense model."""
+    total = count_params(cfg)
+    if cfg.moe is None:
+        return total
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    expert_p = 3 * cfg.d_model * cfg.moe.d_expert  # gate/up/down per expert
+    _, n_units = transformer.layout_of(cfg)
+    return total - n_units * (e - k) * expert_p
 
 
 def params_from_jax(np_params: Mapping[str, Any], device) -> FlatParams:

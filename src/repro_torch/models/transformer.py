@@ -1,21 +1,28 @@
-"""Decoder-only LM: a stack of dense GQA blocks over stacked layer weights.
+"""Decoder-only LM: a stack of GQA blocks over stacked layer weights.
 
-The port's copy of the JAX package's ``models/transformer.py`` for dense
-stacks (InternLM2 and its kind).  Parameters are one `FlatParams` keyed by
-the reference's key paths (``embed``, ``final_norm/scale``, ``lm_head``,
-``u0/{ln1,ln2}/scale``, ``u0/mixer/{wk,wo,wq,wv}``,
-``u0/mlp/{w_down,w_gate,w_up}``), each layer weight stacked over the
-layers on a leading axis, so the flat vector is the reference's
-``ravel_pytree`` of its parameter tree.  The reference scans over the
-stacked axis; the port loops over it.  ``remat`` maps to
-``torch.utils.checkpoint`` per layer.
+The port's copy of the JAX package's ``models/transformer.py`` for the GQA
+token decoders (InternLM2 and its kind) and the MoE family (Qwen-MoE,
+Moonlight).  Parameters are one `FlatParams` keyed by the reference's key
+paths (``embed``, ``final_norm/scale``, ``lm_head``,
+``u0/{ln1,ln2}/scale``, ``u0/mixer/{wk,wo,wq,wv}``, and
+``u0/mlp/{w_down,w_gate,w_up}`` for a dense FFN or
+``u0/mlp/{router,shared/{w_down,w_gate,w_up},shared_gate,w_down,w_gate,
+w_up}`` for an MoE one), each layer weight stacked over the layers on a
+leading axis, so the flat vector is the reference's ``ravel_pytree`` of
+its parameter tree.  The reference scans over the stacked axis; the port
+loops over it.  ``remat`` maps to ``torch.utils.checkpoint`` per layer.
 
 Forward flavours, as in the reference:
 
   * `lm_loss` (and its per-row form `lm_loss_rows`): train, full
-    sequence, chunked cross-entropy;
+    sequence, chunked cross-entropy, plus the MoE router's aux term;
   * `prefill`: full sequence, forward only, the last position's logits;
   * `decode_step`: one token against the KV caches of `init_caches`.
+
+An MoE FFN routes each token group under its own capacity
+(`models.moe`): the batch's tokens in `lm_loss` and `prefill`, each row's
+in `lm_loss_rows` (the reference's per-row loss is its batch loss on a
+batch of one row), each step's B tokens in `decode_step`.
 """
 
 from __future__ import annotations
@@ -33,12 +40,12 @@ from repro_torch.models.attention_config import (attention_impl,
 from repro_torch.models.layers import (gqa_apply, gqa_cache_init, gqa_decode,
                                        gqa_init, mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.utils.tree import FlatParams, flatten_nested, nested
 
 
 # what waits for which slice: ROADMAP.md queue 1 item 9, in order
 _NOT_PORTED = {
-    "moe": "the MoE family (item 9a)",
     "mla": "multi-head latent attention (item 9b)",
     "mamba2": "Mamba2 and the hybrid stacks (item 9c)",
     "xlstm": "xLSTM (item 9d)",
@@ -49,12 +56,14 @@ _NOT_PORTED = {
 def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
     """(unit, n_units) of a GQA token decoder whose unit is one attention
     block, whatever its family label (the reference's `layout_of` looks
-    only at the unit); raises for every other model."""
+    only at the unit), with a dense or an MoE FFN; raises for every other
+    model."""
     unit = tuple(cfg.layout_unit) if cfg.layout_unit else ("attn",)
     if cfg.family == "audio" or cfg.frontend != "tokens":
         missing = "encdec"
-    elif cfg.family == "moe" or cfg.mlp == "moe":
-        missing = "moe"
+    elif (cfg.mlp == "moe") != (cfg.moe is not None):
+        raise ValueError(f"{cfg.name}: mlp {cfg.mlp!r} with moe {cfg.moe!r}; "
+                         "an MoE FFN takes mlp='moe' and its MoEConfig")
     elif cfg.attention == "mla":
         missing = "mla"
     elif {"mamba2", "attn_shared"} & set(unit):
@@ -84,8 +93,10 @@ def _block_init(generator: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
                          "ln2": rmsnorm_init(cfg.d_model, dev),
                          "mixer": gqa_init(generator, cfg.d_model, cfg.n_heads,
                                            cfg.n_kv_heads, cfg.head_dim),
-                         "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                         cfg.mlp)}
+                         "mlp": (moe_init(generator, cfg.d_model, cfg.moe)
+                                 if cfg.moe else
+                                 mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                          cfg.mlp))}
     if cfg.qk_norm:
         p["mixer"]["q_norm"] = rmsnorm_init(cfg.head_dim, dev)
         p["mixer"]["k_norm"] = rmsnorm_init(cfg.head_dim, dev)
@@ -124,10 +135,22 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
               "u0/mixer/wq": (L, d, cfg.n_heads * hd),
               "u0/mixer/wk": (L, d, cfg.n_kv_heads * hd),
               "u0/mixer/wv": (L, d, cfg.n_kv_heads * hd),
-              "u0/mixer/wo": (L, cfg.n_heads * hd, d),
-              "u0/mlp/w_up": (L, d, cfg.d_ff), "u0/mlp/w_down": (L, cfg.d_ff, d)}
-    if cfg.mlp == "swiglu":
-        shapes["u0/mlp/w_gate"] = (L, d, cfg.d_ff)
+              "u0/mixer/wo": (L, cfg.n_heads * hd, d)}
+    if cfg.moe:
+        E, f, fs = cfg.moe.num_experts, cfg.moe.d_expert, cfg.moe.d_shared
+        shapes.update({"u0/mlp/router": (L, d, E),
+                       "u0/mlp/w_gate": (L, E, d, f), "u0/mlp/w_up": (L, E, d, f),
+                       "u0/mlp/w_down": (L, E, f, d)})
+        if cfg.moe.num_shared > 0:
+            shapes.update({"u0/mlp/shared/w_gate": (L, d, fs),
+                           "u0/mlp/shared/w_up": (L, d, fs),
+                           "u0/mlp/shared/w_down": (L, fs, d),
+                           "u0/mlp/shared_gate": (L, d, 1)})
+    else:
+        shapes["u0/mlp/w_up"] = (L, d, cfg.d_ff)
+        shapes["u0/mlp/w_down"] = (L, cfg.d_ff, d)
+        if cfg.mlp == "swiglu":
+            shapes["u0/mlp/w_gate"] = (L, d, cfg.d_ff)
     if cfg.qk_norm:
         shapes["u0/mixer/q_norm/scale"] = (L, hd)
         shapes["u0/mixer/k_norm/scale"] = (L, hd)
@@ -195,20 +218,35 @@ def _lm_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _block_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(p, h: torch.Tensor, cfg: ModelConfig, per_row: bool):
+    """The block's FFN on h (B, S, d): (out, aux).  An MoE FFN routes
+    each row as its own token group when `per_row`, else the whole batch
+    as one; aux is then (B,) or (1,).  A dense FFN's aux is None."""
+    if cfg.moe is None:
+        return mlp_apply(p, h, cfg.mlp), None
+    B, S, d = h.shape
+    out, aux = moe_apply(p, h if per_row else h.reshape(1, B * S, d), cfg.moe)
+    return out.reshape(B, S, d), aux
+
+
+def _block_apply(p, x: torch.Tensor, cfg: ModelConfig, per_row: bool):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     h = gqa_apply(p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                   d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
                   window=cfg.attn_window, qk_norm=cfg.qk_norm)
     x = x + h
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp)
+    out, aux = _ffn(p["mlp"], h2, cfg, per_row)
+    return x + out, aux
 
 
 def forward_hidden(params, x: torch.Tensor, cfg: ModelConfig, *,
-                   remat: bool = False) -> torch.Tensor:
-    """Run the block stack on x (B, S, d), the embedded input; returns the
-    final-normed hidden states.  ``params`` is the nested (cast) dict."""
+                   remat: bool = False, per_row: bool = False):
+    """Run the block stack on x (B, S, d), the embedded input; returns
+    (the final-normed hidden states, aux): aux is the MoE router's aux
+    loss summed over the layers, per token group ((B,) f32 when
+    `per_row`, else (1,)), and None for a dense FFN.  ``params`` is the
+    nested (cast) dict."""
     _, n_units = layout_of(cfg)
     impl = attention_impl()
 
@@ -216,15 +254,18 @@ def forward_hidden(params, x: torch.Tensor, cfg: ModelConfig, *,
         # the recompute runs in the backward pass, after the caller's
         # attention switch is gone: pin the one the forward pass used
         with use_attention_impl(impl):
-            return _block_apply(p, y, cfg)
+            return _block_apply(p, y, cfg, per_row)
 
+    aux = None
     for u in range(n_units):
         p = _slice(params["u0"], u)
         if remat:
-            x = checkpoint(block, p, x, use_reentrant=False)
+            x, a = checkpoint(block, p, x, use_reentrant=False)
         else:
-            x = _block_apply(p, x, cfg)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            x, a = _block_apply(p, x, cfg, per_row)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def _slice(tree, u: int):
@@ -233,18 +274,18 @@ def _slice(tree, u: int):
             for k, v in tree.items()}
 
 
-def lm_loss_rows(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
-                 *, dtype: torch.dtype = torch.bfloat16, remat: bool = True,
-                 loss_chunk: int = 512) -> torch.Tensor:
-    """(B,) per-row next-token cross-entropy: row i's value is the mean
-    masked token loss of document i alone, which is what the reference's
-    `lm_loss` gives on the batch of that one row.  Rows never mix in this
-    model, so one batched forward computes every row's loss.  The logits
-    are taken `loss_chunk` positions at a time (f32, from bf16 operands)."""
+def _loss_terms(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
+                *, per_row: bool, dtype: torch.dtype = torch.bfloat16,
+                remat: bool = True, loss_chunk: int = 512):
+    """(ce (B,): each row's mean masked token loss, aux: the router term
+    ``router_aux_weight * aux / n_units`` per token group, or None for a
+    dense FFN).  The logits are taken `loss_chunk` positions at a time
+    (f32, from bf16 operands)."""
     p = cast_params(nested(params), dtype)
     tokens = batch["tokens"].long()
     batch = {**batch, "tokens": tokens}
-    h = forward_hidden(p, _embed(p, batch, cfg, dtype), cfg, remat=remat)
+    h, aux = forward_hidden(p, _embed(p, batch, cfg, dtype), cfg, remat=remat,
+                            per_row=per_row)
     B, S, _ = h.shape
     targets = F.pad(tokens[:, 1:], (0, 1))
     C = min(loss_chunk, S)
@@ -255,14 +296,43 @@ def lm_loss_rows(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
         true = logits.gather(-1, targets[:, a:a + C, None])[..., 0]
         valid = torch.arange(a, a + logits.shape[1], device=h.device) < S - 1
         total = total + ((logz - true) * valid).sum(dim=-1)
-    return total / max(S - 1, 1)
+    ce = total / max(S - 1, 1)
+    if aux is None:
+        return ce, None
+    _, n_units = layout_of(cfg)
+    return ce, cfg.moe.router_aux_weight * aux / n_units
+
+
+def lm_loss_rows(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
+                 **kw) -> torch.Tensor:
+    """(B,) per-row loss: row i's value is what the reference's `lm_loss`
+    gives on the batch of that one row, the mean masked token loss of
+    document i plus, for an MoE FFN, the router's aux term of row i routed
+    as its own token group.  Rows never mix in attention, and each row is
+    its own MoE group here, so one batched forward computes every row's
+    loss, and a row's loss does not depend on the other rows of its
+    batch."""
+    ce, aux = _loss_terms(params, batch, cfg, per_row=True, **kw)
+    return ce if aux is None else ce + aux
+
+
+def lm_loss_terms(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
+                  **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two terms of `lm_loss`: (the batch's mean masked token loss,
+    the MoE router's aux term ``router_aux_weight * aux / n_units`` with
+    the batch's B*S tokens routed as one group; 0.0 for a dense FFN)."""
+    ce, aux = _loss_terms(params, batch, cfg, per_row=False, **kw)
+    return ce.mean(), (ce.new_zeros(()) if aux is None else aux[0])
 
 
 def lm_loss(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
             **kw) -> torch.Tensor:
-    """The batch's mean masked token loss (the reference's `lm_loss`):
-    every row has S - 1 targets, so it is the mean of `lm_loss_rows`."""
-    return lm_loss_rows(params, batch, cfg, **kw).mean()
+    """The reference's `lm_loss`: the batch's mean masked token loss (every
+    row has S - 1 targets, so the mean of the rows' means) and, for an MoE
+    FFN, the router's aux term over the batch as one token group, so the
+    MoE batch loss is not the mean of `lm_loss_rows`."""
+    ce, aux = lm_loss_terms(params, batch, cfg, **kw)
+    return ce + aux
 
 
 # --------------------------------------------------------------------------
@@ -279,6 +349,8 @@ def _block_cache_init(cfg: ModelConfig, batch: int, seq: int,
 
 
 def _block_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
+    """One layer on the step's x (B, 1, d); an MoE FFN routes the step's B
+    tokens as one group, as the reference's ``moe_apply`` on (B, 1, d)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     h, cache = gqa_decode(p["mixer"], h, cache, n_heads=cfg.n_heads,
                           n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
@@ -286,7 +358,8 @@ def _block_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
                           qk_norm=cfg.qk_norm)
     x = x + h
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp), cache
+    out, _ = _ffn(p["mlp"], h2, cfg, per_row=False)
+    return x + out, cache
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq: int,
@@ -336,5 +409,5 @@ def prefill(params: Mapping[str, Any], batch, cfg: ModelConfig, *,
     ``use_attention_impl("flash")``."""
     p = cast_params(nested(params), dtype)
     x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
-    h = forward_hidden(p, x, cfg, remat=False)
+    h, _ = forward_hidden(p, x, cfg, remat=False)
     return _lm_head(p, h[:, -1], cfg)

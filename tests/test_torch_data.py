@@ -9,13 +9,15 @@ import torch
 from jax.flatten_util import ravel_pytree
 
 from repro.data import sampler as jsampler
+from repro.data.dataset import Dataset as JDataset
+from repro.data.dataset import subset as j_subset
 from repro.data.synthetic import binary_classification as j_binary
 from repro.data.synthetic import multiclass_classification as j_multiclass
 from repro.models.simple import mlp_objective as j_mlp_objective
 
 from repro_torch.configs.paper_mlp import CONFIG
 from repro_torch.data import sampler as tsampler
-from repro_torch.data.dataset import Dataset
+from repro_torch.data.dataset import Dataset, subset
 from repro_torch.data.synthetic import binary_classification as t_binary
 from repro_torch.data.synthetic import multiclass_classification as t_multiclass
 from repro_torch.models.simple import (mlp_init, mlp_objective,
@@ -84,6 +86,56 @@ def test_dataset_device_columns_padded_batch_and_append():
     assert ds.device_columns("cpu")["y"].shape == (8,)
     with pytest.raises(ValueError):
         Dataset({"x": np.zeros(3), "y": np.zeros(4)})
+
+
+def _both_datasets(n=10):
+    cols = {"x": np.arange(3 * n, dtype=np.float32).reshape(n, 3),
+            "y": np.arange(n, dtype=np.int32) % 3}
+    return (Dataset({k: v.copy() for k, v in cols.items()}),
+            JDataset({k: v.copy() for k, v in cols.items()}))
+
+
+def test_dataset_delete_undelete_and_removed_indices_match_the_reference():
+    t, j = _both_datasets()
+    for op, rows in (("delete", [7, 2]), ("delete", [4]), ("undelete", [2, 9]),
+                     ("delete", [2, 0])):
+        a, b = getattr(t, op)(iter(rows)), getattr(j, op)(iter(rows))
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert np.array_equal(t.removed, j.removed)
+        assert np.array_equal(t.removed_indices, j.removed_indices)
+        assert np.array_equal(t.remaining_indices, j.remaining_indices)
+        assert t.n_remaining == j.n_remaining
+    assert t.removed_indices.tolist() == [0, 2, 4, 7]
+    for ds in (t, j):
+        with pytest.raises(ValueError, match=r"rows already deleted: \[7\]"):
+            ds.delete([5, 7])
+    assert np.array_equal(t.removed, j.removed)  # a refused delete marks nothing
+
+
+@pytest.mark.parametrize("removed_set", [None, np.array([1, 6, 8])],
+                         ids=["mask", "explicit"])
+def test_dataset_split_batch_matches_the_reference(removed_set):
+    t, j = _both_datasets()
+    t.delete([3, 6])
+    j.delete([3, 6])
+    idx = np.array([6, 0, 3, 8, 1, 6], np.int64)
+    for a, b in zip(t.split_batch(idx, removed_set),
+                    j.split_batch(idx, removed_set)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_dataset_subset_matches_the_reference():
+    t, j = _both_datasets()
+    t.delete([1])
+    j.delete([1])
+    a, b = subset(t, [5, 1, 5]), j_subset(j, [5, 1, 5])
+    assert isinstance(a, Dataset) and a.n == b.n == 3
+    assert np.array_equal(a.removed, b.removed) and not a.removed.any()
+    for k in b.columns:
+        assert a.columns[k].dtype == b.columns[k].dtype
+        assert np.array_equal(a.columns[k], b.columns[k])
+    a.columns["x"][0] = -1.0  # a copy, not a view
+    assert t.columns["x"][5, 0] == 15.0
 
 
 def test_params_from_jax_round_trips_in_ravel_pytree_order():

@@ -119,12 +119,14 @@ def test_full_size_parameter_counts_match(arch):
     assert ("u0/mlp/w_gate" in shapes) == (cfg.mlp == "swiglu")
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(family="moe", mlp="moe"), "9a"),
-    (dict(attention="mla"), "9b"),
-    (dict(family="hybrid", layout_unit=("mamba2",) * 5 + ("attn_shared",)), "9c"),
-    (dict(family="ssm", layout_unit=("mlstm", "slstm"), mlp="none"), "9d"),
-    (dict(family="audio", frontend="frames", mlp="gelu"), "9e"),
+@pytest.mark.parametrize("change,item", [  # ids as before the MoE family (9a)
+    pytest.param(dict(attention="mla"), "9b", id="change1-9b"),
+    pytest.param(dict(family="hybrid", layout_unit=("mamba2",) * 5 + ("attn_shared",)),
+                 "9c", id="change2-9c"),
+    pytest.param(dict(family="ssm", layout_unit=("mlstm", "slstm"), mlp="none"), "9d",
+                 id="change3-9d"),
+    pytest.param(dict(family="audio", frontend="frames", mlp="gelu"), "9e",
+                 id="change4-9e"),
 ])
 def test_layout_raises_for_the_families_not_ported(change, item):
     cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=6, **change)
@@ -135,7 +137,7 @@ def test_layout_raises_for_the_families_not_ported(change, item):
         build(cfg)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"])
 def test_layout_takes_every_gqa_token_decoder(arch):
     cfg = get_config(arch)
     assert tt.layout_of(cfg) == jt.layout_of(j_get_config(arch)) == (("attn",), cfg.n_layers)
