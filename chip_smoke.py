@@ -34,8 +34,9 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      (p = 504,899,584), with the flash kernel on every forward pass:
      flash against blockwise attention at the model level, then train ->
      BaseL -> replay from a host-tier f32 history streamed in windows of 2
-     steps, the same with the plain blockwise attention, and a host-tier
-     delta_int8 history replayed in kernel mode against fetch mode; launch
+     steps, and a host-tier delta_int8 history replayed in kernel mode
+     against fetch mode (the f32 path under the plain blockwise attention
+     runs only under ``--lm-blockwise``, below); launch
      counts, memory, times, and a profile of one LM replay; then the
      p-length kernels ranked by launches x (ms - bound_ms) on the LM's
      main path.  Phase 2 holds the flash kernel against its plain
@@ -91,7 +92,19 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      = 1,192,886,272) from a host f32 history, with the replay kernels'
      and flash's launches, and those three kernels against their plain
      versions at that p; and the train CLI at that cut, its step-0 loss
-     split into cross-entropy and the router's aux term.
+     split into cross-entropy and the router's aux term;
+ 16. multi-head latent attention, minicpm3-4b at its published widths:
+     `decode_main` at all 62 layers (tokens/s, ms per step, launches and
+     busy share, memory, the latent cache's bytes), `prefill_fn` (the
+     expanded form, no flash launch under flash) against the stepped
+     absorbed decode, the card against the port's CPU run (full width at 2
+     layers in bf16, the reduced model in f32), train -> BaseL -> replay on
+     phase 9's recipe and main path at 2 of 62 layers (p = 501,406,208),
+     the replay under the profiler, its d_ui/d_us against 1 (recorded in
+     bf16, where both packages' replays fall either side of 1 by the draw),
+     with the replay kernels' launches and those kernels against their
+     plain versions at that p, and the train CLI at that cut resumed from
+     step 4, held bitwise.
 
 Phase 2 also holds the bf16 flash kernel to the reference flash's f32 P:
 its mean |err|/(1+|plain|) below a quarter of the bf16-P softmax's.
@@ -104,10 +117,22 @@ printing no result, when a phase fails or no card is present.
 
 runs phase 15 (d) alone at another cut (compute dtype, T, j0) and records
 its replay against BaseL.
+
+    python3 chip_smoke.py --mla-dg f32
+
+runs phase 16 (d) alone in f32 compute (or bf16) and holds d_ui < d_us in
+f32.
+
+    python3 chip_smoke.py --lm-blockwise
+
+runs phase 9's f32 host path again with the plain blockwise attention in
+every forward pass, beside the flash run's w* and w_U (recorded: a second
+12-step history of 2 GB vectors, held only to finite values).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -231,6 +256,20 @@ MOONSHOT = dict(layers=2, batch=4, prompt=32, gen=16, n_params=1_846_818_816)
 MOE_PARITY = dict(batch=2, prompt=8, gen=8, x=(2, 64, 2048), tol=1e-4)
 MOE_LM = dict(layers=1, n_params=1_192_886_272, steps=6, burn_in=2, window=1)
 MOE_TRAIN = dict(batch=8, seq=512, steps=4)
+# phase 16: multi-head latent attention, minicpm3-4b at its published widths
+# (40 heads, qk 64 + 32, v 64, ranks 768 / 256).  (a) `decode_main` at all 62
+# layers (p = 4,261,902,848: 17.05 GB f32 cast once to 8.52 GB bf16) on phase
+# 14 (a)'s shape; (b) `prefill_fn` (the expanded form) against the stepped
+# absorbed decode; (c) card against CPU at full width and 2 layers (bf16), and
+# the reduced model in f32; (d) DeltaGrad on phase 9's recipe and main path at
+# 2 of 62 layers (the one cut; p = 501,406,208); (e) the train CLI at (d)'s cut
+MLA_DECODE = dict(batch=16, prompt=128, gen=64, n_params=4_261_902_848)
+MLA_LM = dict(n_params=501_406_208)
+# in bf16 compute the replay's d_ui/d_us on this recipe falls either side of
+# 1 by the draw, in both packages: the bf16 gradient's rounding enters the
+# L-BFGS pairs (PERF.md section 7; `python tests/test_torch_mla.py
+# 256,128,bf16,8` prints both packages over 8 draws on the CPU)
+MLA_BF16_MISS = "PERF.md section 7, ROADMAP queue 3"
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -1077,6 +1116,10 @@ def main() -> int:
     gc_collect()
     moe_phase(torch, np, dev, kernels)
 
+    # -- 16. multi-head latent attention -------------------------------------------------
+    gc_collect()
+    mla_phase(torch, np, dev, kernels)
+
     # -- results ---------------------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", file=sys.stderr)
@@ -1100,16 +1143,10 @@ def decode_train_phase(torch, np, dev, kernels) -> None:
     their entry points (`launch.serve.decode_main`, `launch.train.main`),
     each run with the launch counts zeroed just before and read after."""
     import dataclasses as dc
-    import os
-    import shutil
-    import tempfile
 
     from repro_torch.configs.registry import get_config, register
-    from repro_torch.launch import serve, train
-    from repro_torch.models.attention_config import use_attention_impl
+    from repro_torch.launch import train
     from repro_torch.models.registry import build
-    from repro_torch.models.transformer import cast_params
-    from repro_torch.utils.tree import flatten_nested, nested
 
     t_phase = time.perf_counter()
     smi = nvidia_smi()
@@ -1133,7 +1170,36 @@ def decode_train_phase(torch, np, dev, kernels) -> None:
     gc_collect()
 
     # (c) the card against the port's CPU run, the same bf16 weights
-    pcfg = dc.replace(cfg, n_layers=DECODE_PARITY["layers"])
+    decode_cpu_parity(torch, np, dev, smi, dc.replace(cfg, n_layers=DECODE_PARITY["layers"]))
+
+    # (d) the train CLI's LM mode at phase 9's cut, resumed from step 4
+    tcfg = register(dc.replace(cfg, name="internlm2-1.8b-2l", n_layers=LM["layers"]))
+    train_resume(torch, np, kernels, smi, tcfg, LM["n_params"], flash_per_step=LM["layers"])
+
+    # (e) the train CLI's paper mode at its defaults
+    out, n = counted_run(kernels, lambda: train.main(["--arch", "paper-logreg"]))
+    print(f"train paper-logreg: acc={out['acc']:.4f} r={out['r']} "
+          f"||w_U - w_I||={out['dist']:.6e} counters {out['stats'].counters()} "
+          f"launches {json.dumps(n)} | {smi}", flush=True)
+    st = out["stats"]
+    if not (out["acc"] > 0.8 and np.isfinite(out["dist"]) and st.approx_steps > 0
+            and (st.guard_fallbacks or n["fused_update"] == st.approx_steps)):
+        fail(f"train paper-logreg: acc {out['acc']}, dist {out['dist']}, "
+             f"launches {n}")
+    print(f"decode/train: phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def decode_cpu_parity(torch, np, dev, smi, pcfg) -> None:
+    """The card's bf16 `generate` against the port's CPU run on the same
+    bf16 weights of `pcfg` (full width, a few layers): the logits after the
+    prompt within `DECODE_CPU_TOL`, the greedy tokens equal up to the
+    first step whose top-2 margin is under the bar."""
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.utils.tree import flatten_nested, nested
+
     model = build(pcfg)
     params = cast_params(nested(model.init(seed=0, device=dev)), torch.bfloat16)
     params_cpu = {k: v.cpu() for k, v in flatten_nested(params).items()}
@@ -1157,16 +1223,28 @@ def decode_train_phase(torch, np, dev, kernels) -> None:
           f"{same}; all {DECODE_PARITY['gen']} equal: "
           f"{np.array_equal(card['tokens'], cpu['tokens'])} | {smi}", flush=True)
     if not (mx <= DECODE_CPU_TOL["max"] and mean <= DECODE_CPU_TOL["mean"] and same):
-        fail(f"decode card vs cpu: logits max {mx:.3e} mean {mean:.3e}, "
+        fail(f"decode card vs cpu ({pcfg.name}): logits max {mx:.3e} mean {mean:.3e}, "
              f"tokens through step {upto - 1} equal: {same}")
     del model, params, params_cpu, card, cpu
     gc_collect()
 
-    # (d) the train CLI's LM mode at phase 9's cut, resumed from step 4
-    tcfg = register(dc.replace(cfg, name="internlm2-1.8b-2l", n_layers=LM["layers"]))
+
+def train_resume(torch, np, kernels, smi, tcfg, n_params, flash_per_step) -> None:
+    """The train CLI's LM mode on `tcfg` (registered), TRAIN's B, S and
+    steps with a checkpoint every TRAIN["every"] steps, under flash, then
+    re-run after a crash past the first checkpoint: the resumed run held
+    bitwise to the uninterrupted one, `flash_per_step` flash launches a
+    step and no other launch."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.models.attention_config import use_attention_impl
+
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        state_bytes = 3 * LM["n_params"] * 4  # params, m, v in f32
+        state_bytes = 3 * n_params * 4  # params, m, v in f32
         free = shutil.disk_usage(ckpt_dir).free
         print(f"train: {ckpt_dir} has {free / 1e9:.1f} GB free; a checkpoint "
               f"is {state_bytes / 1e9:.2f} GB of npz", flush=True)
@@ -1198,10 +1276,10 @@ def decode_train_phase(torch, np, dev, kernels) -> None:
                   f"({n['flash_attention'] / max(steps, 1):.2f}/step); "
                   f"max_memory_allocated={torch.cuda.max_memory_allocated()}; "
                   f"wall {wall:.2f} s with the checkpoints | {smi}", flush=True)
-            if n["flash_attention"] != LM["layers"] * steps or any(
+            if n["flash_attention"] != flash_per_step * steps or any(
                     v for k, v in n.items() if k != "flash_attention"):
-                fail(f"train {name}: launches {n} for {steps} steps of "
-                     f"{LM['layers']} layers")
+                fail(f"train {name}: launches {n} for {steps} steps, want "
+                     f"{flash_per_step} flash launches a step and nothing else")
         a, b = runs["whole"], runs["resumed"]
         same = (b["start"] == TRAIN["every"]
                 and a["state"].step == b["state"].step == TRAIN["steps"]
@@ -1220,24 +1298,11 @@ def decode_train_phase(torch, np, dev, kernels) -> None:
             fail(f"train: the resumed run is not bitwise the uninterrupted one {gaps}")
         if not (np.isfinite(list(a["losses"].values())).all()
                 and a["losses"][TRAIN["steps"] - 1] < a["losses"][0]):
-            fail(f"train: losses {a['losses']}")
+            fail(f"train {tcfg.name}: losses {a['losses']}")
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del runs, a, b
     gc_collect()
-
-    # (e) the train CLI's paper mode at its defaults
-    out, n = counted_run(kernels, lambda: train.main(["--arch", "paper-logreg"]))
-    print(f"train paper-logreg: acc={out['acc']:.4f} r={out['r']} "
-          f"||w_U - w_I||={out['dist']:.6e} counters {out['stats'].counters()} "
-          f"launches {json.dumps(n)} | {smi}", flush=True)
-    st = out["stats"]
-    if not (out["acc"] > 0.8 and np.isfinite(out["dist"]) and st.approx_steps > 0
-            and (st.guard_fallbacks or n["fused_update"] == st.approx_steps)):
-        fail(f"train paper-logreg: acc {out['acc']}, dist {out['dist']}, "
-             f"launches {n}")
-    print(f"decode/train: phase wall time {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
 
 
 def moe_phase(torch, np, dev, kernels) -> None:
@@ -1314,32 +1379,8 @@ def moe_parity(torch, np, dev, smi) -> None:
     base = get_config("qwen2-moe-a2.7b")
     B, P, G = MOE_PARITY["batch"], MOE_PARITY["prompt"], MOE_PARITY["gen"]
 
-    def greedy_f32(model, params, prompt, device):
-        """The stepped decode in f32 compute, greedy: (tokens, the logits
-        after the prompt and after each generated token)."""
-        toks = torch.from_numpy(prompt).to(device)
-        caches = model.cache_init(B, P + G, device=device)
-        for t in range(P):
-            logits, caches = model.decode_fn(params, {"tokens": toks[:, t:t + 1]},
-                                             caches, dtype=torch.float32)
-        seen, out = [logits], []
-        for _ in range(G):
-            nxt = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
-            out.append(nxt)
-            logits, caches = model.decode_fn(params, {"tokens": nxt}, caches,
-                                             dtype=torch.float32)
-            seen.append(logits)
-        return torch.cat(out, dim=1).cpu().numpy(), torch.stack(seen).cpu()
-
     rcfg = base.reduced()
-    rmodel = build(rcfg)
-    rp = rmodel.init(seed=0, device=dev)
-    prompt = np.random.default_rng(0).integers(0, rcfg.vocab, size=(B, P),
-                                               dtype=np.int32)
-    (tok_c, log_c), (tok_h, log_h) = (greedy_f32(rmodel, p, prompt, where)
-                                      for p, where in ((rp, dev), (rp.to("cpu"), "cpu")))
-    mx = (log_c - log_h).abs().max().item()
-    same = np.array_equal(tok_c, tok_h)
+    mx, same = reduced_f32_parity(torch, np, dev, rcfg)
     print(f"moe card vs cpu, reduced {base.name} in f32 (E "
           f"{rcfg.moe.num_experts}, top-{rcfg.moe.top_k}, B {B}, {P} + {G} "
           f"tokens): logits max |gap| {mx:.6e} (tol {MOE_PARITY['tol']}); "
@@ -1392,6 +1433,41 @@ def moe_parity(torch, np, dev, smi) -> None:
     gc_collect()
 
 
+def greedy_f32(torch, model, params, prompt, gen, device):
+    """The stepped decode in f32 compute, greedy: (tokens, the logits after
+    the prompt and after each generated token)."""
+    B, P = prompt.shape
+    toks = torch.from_numpy(prompt).to(device)
+    caches = model.cache_init(B, P + gen, device=device)
+    for t in range(P):
+        logits, caches = model.decode_fn(params, {"tokens": toks[:, t:t + 1]},
+                                         caches, dtype=torch.float32)
+    seen, out = [logits], []
+    for _ in range(gen):
+        nxt = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        out.append(nxt)
+        logits, caches = model.decode_fn(params, {"tokens": nxt}, caches,
+                                         dtype=torch.float32)
+        seen.append(logits)
+    return torch.cat(out, dim=1).cpu().numpy(), torch.stack(seen).cpu()
+
+
+def reduced_f32_parity(torch, np, dev, rcfg) -> tuple:
+    """The reduced model `rcfg` decoding greedily in f32 on the card and on
+    the CPU, the same weights (MOE_PARITY's batch, prompt and gen): (max
+    |gap| of the logits, greedy tokens equal)."""
+    from repro_torch.models.registry import build
+
+    B, P, G = MOE_PARITY["batch"], MOE_PARITY["prompt"], MOE_PARITY["gen"]
+    rmodel = build(rcfg)
+    rp = rmodel.init(seed=0, device=dev)
+    prompt = np.random.default_rng(0).integers(0, rcfg.vocab, size=(B, P),
+                                               dtype=np.int32)
+    (tok_c, log_c), (tok_h, log_h) = (greedy_f32(torch, rmodel, p, prompt, G, where)
+                                      for p, where in ((rp, dev), (rp.to("cpu"), "cpu")))
+    return (log_c - log_h).abs().max().item(), np.array_equal(tok_c, tok_h)
+
+
 def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
                   burn_in=MOE_LM["burn_in"], dtype=None, main_path=True):
     """15 (d): DeltaGrad on qwen2-moe-a2.7b at full width, 1 of 24 layers,
@@ -1411,7 +1487,6 @@ def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
 
     from repro_torch.configs.registry import get_config, register
     from repro_torch.core import deltagrad as dg
-    from repro_torch.core import engine
     from repro_torch.core.history import HistoryMeta
     from repro_torch.data.synthetic import token_stream
     from repro_torch.models import moe
@@ -1440,14 +1515,7 @@ def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
           f"GB, MemAvailable {mem_available_gb():.1f} GiB", flush=True)
     obj = dg.Objective.from_model(model, loss_chunk=LM["loss_chunk"],
                                   attn_impl="flash", dtype=dtype)
-    forwards = [0]
-    per_row = obj.per_example_loss
-
-    def counted(params, batch):  # one forward pass of the model per call
-        forwards[0] += 1
-        return per_row(params, batch)
-
-    obj.per_example_loss = counted
+    forwards = count_forwards(obj)
 
     # determinism: the objective's gradient on one batch, twice
     batch = {"tokens": docs.device_columns(dev)["tokens"][:LM["batch"]]}
@@ -1476,40 +1544,20 @@ def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
     del w_star, w_u
     gc_collect()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k["wrapper"].launches = 0
     forwards[0] = 0
-    ratios = []  # each B v's ||Bv|| / ||v|| (device scalars, read after)
-    plain_hvp = engine.lbfgs_hvp_fused
-
-    def recording(dW, dG, v, valid=None):
-        out = plain_hvp(dW, dG, v, valid)
-        ratios.append(out.norm() / v.norm())
-        return out
-
-    engine.lbfgs_hvp_fused = recording
-    try:
-        w_i, st = dg.deltagrad_retrain(obj, hist, docs, removed, dgc)
-    finally:
-        engine.lbfgs_hvp_fused = plain_hvp
+    with bv_ratios() as ratios:
+        (w_i, st), n = counted_run(kernels, lambda: dg.deltagrad_retrain(
+            obj, hist, docs, removed, dgc))
     peak = torch.cuda.max_memory_allocated()
-    n = {k: v["wrapper"].launches for k, v in kernels.items()}
     fwd = forwards[0]
     w_u, _ = dg.baseline_retrain(obj, docs, meta, p0, removed)
     del p0
     d_ui = (w_u.flat - w_i.flat).norm().item()
-    x = st.extra
-    print(f"moe lm {what} compute, f32 host: train_s={train_s:.4f} "
-          f"baseline_s={st_u.wall_time_s:.4f} replay_s={st.wall_time_s:.4f} "
-          + " ".join(f"{k}={v}" for k, v in st.counters().items())
-          + f" d_ui={d_ui:.6e} d_us={d_us:.6e} d_ui/d_us={d_ui / d_us:.4e} "
-          f"||Bv||/||v|| {' '.join(f'{r.item():.4e}' for r in ratios)} (clip "
-          f"{dgc.guard_norm_clip:g}) store={x['store']} windows={x['windows']} "
-          f"host_wait_s={x['host_wait_s']:.4f} "
-          f"hbm_high_water={x['hbm_high_water']} max_memory_allocated "
-          f"(replay)={peak} forward_passes={fwd} launches {json.dumps(n)}; "
-          f"MemAvailable {mem_available_gb():.1f} GiB with the history | {smi}",
-          flush=True)
+    print(replay_line(f"moe lm {what} compute, f32 host", train_s, st_u, st, d_ui,
+                      d_us, ratios, dgc)
+          + f" max_memory_allocated (replay)={peak} forward_passes={fwd} "
+          f"launches {json.dumps(n)}; MemAvailable {mem_available_gb():.1f} GiB "
+          f"with the history | {smi}", flush=True)
     if not (bool(torch.isfinite(w_i.flat).all()) and w_i.numel == MOE_LM["n_params"]):
         fail("moe lm: replay parameters are not finite of the expected shape")
     if not main_path:
@@ -1526,12 +1574,7 @@ def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
     if not n["flash_attention"] == MOE_LM["layers"] * fwd > 0:
         fail(f"moe lm: flash launched {n['flash_attention']} times for {fwd} "
              f"forward passes of {MOE_LM['layers']} layer")
-    # each approx segment launches the replay kernels; a step that trips
-    # the Algorithm-4 guard re-runs as an explicit step
-    for k in RESIDENT:
-        if n[k] <= 0 or (st.guard_fallbacks == 0 and n[k] != st.approx_steps):
-            fail(f"moe lm: {k} launched {n[k]} times for {st.approx_steps} "
-                 f"approx steps and {st.guard_fallbacks} guard fallbacks")
+    check_replay_launches("moe lm", n, st)
     if n["dequant_update"] or n["dequant_sub"]:
         fail("moe lm: a dequant kernel ran on the f32 (fetch-mode) path")
     del w_i, w_u
@@ -1546,7 +1589,7 @@ def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
     return lcfg
 
 
-def replay_kernels_at(torch, dev, p: int, m: int = 2) -> None:
+def replay_kernels_at(torch, dev, p: int, m: int = 2, label: str = "moe lm") -> None:
     """The replay's three kernels against their plain versions at the
     objective's p, f32, m pairs: fused_update and rank_update elementwise
     (|err| / max |plain|, phase 2's 1e-5); multidot's sums per entry
@@ -1592,14 +1635,14 @@ def replay_kernels_at(torch, dev, p: int, m: int = 2) -> None:
     errs["multidot"] = per[0]
     for f, n in saved.items():
         f.launches = n
-    print(f"moe lm: the replay kernels against their plain versions at p={p}, "
+    print(f"{label}: the replay kernels against their plain versions at p={p}, "
           f"m={m}, f32: fused_update rel_err={errs['fused_update']:.3e} "
           f"rank_update rel_err={errs['rank_update']:.3e} (tol 1e-5); multidot "
           f"per-entry |err|/sum|a*b| vs f64 = {per[0]:.3e} (plain version "
           f"{per[1]:.3e}; tol 1e-5)", flush=True)
     for name, e in errs.items():
         if not e <= 1e-5:
-            fail(f"moe lm: {name} at p={p}: error {e:.3e} > 1e-5")
+            fail(f"{label}: {name} at p={p}: error {e:.3e} > 1e-5")
     del dW, dG, v, w, g, gc, sums, plain, exact, scale
     gc_collect()
 
@@ -1653,6 +1696,155 @@ def moe_train(torch, np, dev, kernels, smi, lcfg) -> None:
              f"{MOE_LM['layers']} layer")
 
 
+def mla_phase(torch, np, dev, kernels) -> None:
+    """Phase 16: multi-head latent attention (minicpm3-4b) at its published
+    widths through the model facade's three paths, decode (`decode_main`),
+    the DeltaGrad objective (train -> BaseL -> replay) and the train CLI,
+    each run with the launch counts zeroed just before and read after; and
+    the card against the port's CPU run.  MLA's attention is blockwise
+    whatever the flash switch (the reference's mla.py:79), so no path of
+    this phase launches flash."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"mla: MemAvailable {mem_available_gb():.1f} GiB at the start", flush=True)
+    marks = [t_phase]
+
+    def lap(part: str) -> None:  # where the phase's time goes
+        marks.append(time.perf_counter())
+        print(f"mla: {part} took {marks[-1] - marks[-2]:.1f} s", flush=True)
+
+    # (a) all 62 layers; (b) the expanded prefill against the absorbed decode
+    cfg = get_config("minicpm3-4b")
+    label = f"{cfg.name} {cfg.n_layers} layers"
+    res = decode_run(torch, kernels, smi, label, cfg, MLA_DECODE)
+    m, B = cfg.mla, MLA_DECODE["batch"]
+    slots = MLA_DECODE["prompt"] + MLA_DECODE["gen"]
+    per_pos = m.kv_lora_rank + m.qk_rope_head_dim
+    expanded = cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim)
+    print(f"decode {label}: latent cache {cfg.n_layers * B * slots * per_pos * 2} "
+          f"bytes ({per_pos} bf16 values a position a layer, {slots} positions "
+          f"x B {B} x {cfg.n_layers} layers; expanded k and v would hold "
+          f"{expanded}, {expanded / per_pos:.1f}x)", flush=True)
+    lap("(a) decode_main at 62 layers")
+    model = build(cfg)
+    prefill_check(torch, dev, kernels, smi, label, model, res, cfg.n_layers)
+    lap("(b) prefill_fn")
+    # one step: ~6,000 launches, near as many events as phase 14's 8 steps
+    decode_profile(torch, dev, smi, label, model, res, steps=1)
+    del res, model
+    gc_collect()
+    lap("(a) the decode profile")
+
+    # (c) the card against the port's CPU run
+    decode_cpu_parity(torch, np, dev, smi,
+                      dc.replace(cfg, n_layers=DECODE_PARITY["layers"]))
+    rcfg = cfg.reduced()
+    mx, same = reduced_f32_parity(torch, np, dev, rcfg)
+    print(f"mla card vs cpu, reduced {cfg.name} in f32 (q_lora "
+          f"{rcfg.mla.q_lora_rank}, kv_lora {rcfg.mla.kv_lora_rank}, B "
+          f"{MOE_PARITY['batch']}, {MOE_PARITY['prompt']} + {MOE_PARITY['gen']} "
+          f"tokens): logits max |gap| {mx:.6e} (tol {MOE_PARITY['tol']}); greedy "
+          f"tokens equal: {same}", flush=True)
+    if not (mx <= MOE_PARITY["tol"] and same):
+        fail(f"mla card vs cpu reduced f32: logits {mx:.3e}, tokens equal {same}")
+    lap("(c) card against CPU")
+
+    # (d) DeltaGrad at 2 of 62 layers; (e) the train CLI at that cut
+    lcfg = mla_deltagrad(torch, np, dev, kernels, smi)
+    lap("(d) DeltaGrad at 2 layers")
+    train_resume(torch, np, kernels, smi, lcfg, MLA_LM["n_params"], flash_per_step=0)
+    lap("(e) the train CLI, resumed")
+    print(f"mla: phase wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def mla_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
+    """16 (d): DeltaGrad on minicpm3-4b at full width, 2 of its 62 layers,
+    on phase 9's recipe and main path (``attn_impl="flash"``, which MLA
+    never reaches; a host f32 history streamed in windows of 2 steps) in
+    the compute `dtype` (None: the model's bf16).  On the main path the
+    replay runs once, under the profiler (its busy share; replay_s is read
+    there), with the launch counts zeroed just before and read after.
+    Held: no flash or dequant launch, each replay kernel launched once per
+    approx step (at least once where the guard sent a segment back), on
+    the main path those kernels against their plain versions at this p,
+    and in f32 compute d_ui < d_us.  In bf16 d_ui/d_us is recorded against
+    the bar of 1, not held (`MLA_BF16_MISS`).  ``--mla-dg f32`` runs this
+    alone in f32 compute (`main_path` False).  Returns the 2-layer config,
+    registered for the train CLI."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import register
+    from repro_torch.core import deltagrad as dg
+
+    what = "bf16" if dtype is None else str(dtype).split(".")[-1]
+    print(f"mla lm: MemAvailable {mem_available_gb():.1f} GiB at the start",
+          flush=True)
+    cfg, model, p0, docs, meta, dgc, removed, obj = lm_setup(torch, np, dev,
+                                                             "minicpm3-4b", dtype)
+    lcfg = register(dc.replace(cfg, name=f"{cfg.name}-{cfg.n_layers}l"))
+    if p0.numel != MLA_LM["n_params"]:
+        fail(f"mla lm: p = {p0.numel}, want {MLA_LM['n_params']}")
+    print(f"mla lm: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"mla={dc.asdict(cfg.mla)} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"layers={cfg.n_layers} of 62 p={p0.numel} ({p0.numel * 4 / 1e9:.3f} GB "
+          f"a f32 vector) {what} compute docs={LM['docs']}x{LM['seq']} "
+          f"B={LM['batch']} T={meta.steps} T0={dgc.period} j0={dgc.burn_in} "
+          f"m={dgc.history_size} window={dgc.stream_window} "
+          f"removed={removed.tolist()}; the host f32 history needs "
+          f"{meta.steps * 2 * p0.numel * 4 / 1e9:.1f} GB", flush=True)
+    forwards = count_forwards(obj)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    w_star, hist = dg.sgd_train_with_cache(obj, p0, docs, meta, tier="host",
+                                           codec="f32", window=dgc.stream_window)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated()
+    w_u, st_u = dg.baseline_retrain(obj, docs, meta, p0, removed)
+    torch.cuda.reset_peak_memory_stats()
+    forwards[0] = 0
+
+    def replay():
+        return dg.deltagrad_retrain(obj, hist, docs, removed, dgc)
+
+    label = f"mla lm {what} compute, f32 host"
+    with bv_ratios() as ratios:
+        (w_i, st), n = counted_run(kernels, (lambda: profile_replay(
+            torch, f"{label} replay", replay)) if main_path else replay)
+    peak = torch.cuda.max_memory_allocated()
+    d_ui = (w_u.flat - w_i.flat).norm().item()
+    d_us = (w_u.flat - w_star.flat).norm().item()
+    print(replay_line(label, train_s, st_u, st, d_ui, d_us, ratios, dgc)
+          + (" (replay_s under the profiler)" if main_path else "")
+          + f" max_memory_allocated (train)={train_peak} (replay)={peak} "
+          f"host_bytes={hist.nbytes()} forward_passes={forwards[0]} launches "
+          f"{json.dumps(n)}; MemAvailable {mem_available_gb():.1f} GiB with the "
+          f"history | {smi}", flush=True)
+    if not (bool(torch.isfinite(w_i.flat).all()) and w_i.numel == MLA_LM["n_params"]):
+        fail("mla lm: replay parameters are not finite of the expected shape")
+    # phase 9's bar, held in f32 compute; in bf16 recorded (MLA_BF16_MISS)
+    print(f"mla lm {what} compute: d_ui/d_us = {d_ui / d_us:.4e}: "
+          + ("below the bar of 1" if d_ui < d_us else "MISSES the bar of 1")
+          + ("" if dtype is not None else f" (bf16: recorded, not held; {MLA_BF16_MISS})"),
+          flush=True)
+    if dtype is not None and not d_ui < d_us:
+        fail(f"mla lm {what}: d_ui {d_ui:.3e} not below d_us {d_us:.3e}")
+    if n["flash_attention"] or n["dequant_update"] or n["dequant_sub"]:
+        fail(f"mla lm: launches {n}: MLA's attention is blockwise and the f32 "
+             "history is fetched")
+    check_replay_launches("mla lm", n, st)
+    del w_star, w_u, w_i, p0, hist, obj, model
+    gc_collect()
+    if main_path:
+        replay_kernels_at(torch, dev, MLA_LM["n_params"], label="mla lm")
+    return lcfg
+
+
 def decode_run(torch, kernels, smi, label, cfg, run) -> dict:
     """`launch.serve.decode_main` on `cfg` (registered) at ``run``'s batch,
     prompt and gen under flash, with the launch counts zeroed just before
@@ -1669,12 +1861,17 @@ def decode_run(torch, kernels, smi, label, cfg, run) -> dict:
     with use_attention_impl("flash"):
         res, n = counted_run(kernels, lambda: serve.decode_main(argv))
     peak = torch.cuda.max_memory_allocated()
-    leaves = flatten_nested(res["params"]).values()
-    p = sum(x.numel() for x in leaves)
-    dtypes = {x.dtype for x in leaves}
-    bound, _ = bound_ms(p * 2, 0.0)  # a step reads every bf16 weight once
+    flat = flatten_nested(res["params"])
+    p = sum(x.numel() for x in flat.values())
+    dtypes = {x.dtype for x in flat.values()}
+    # a step reads every bf16 weight once, and of an untied embedding only
+    # its B rows
+    read = p - (0 if cfg.tie_embeddings else
+                flat["embed"].numel() - run["batch"] * cfg.d_model)
+    bound, _ = bound_ms(read * 2, 0.0)
     print(f"decode {label}: p={p} ({p * 4 / 1e9:.3f} GB f32 master, cast "
-          f"once to {p * 2 / 1e9:.3f} GB bf16) B={run['batch']} "
+          f"once to {p * 2 / 1e9:.3f} GB bf16; a step reads "
+          f"{read * 2 / 1e9:.3f} GB) B={run['batch']} "
           f"prompt={res['prompt'].shape[1]} gen={run['gen']} greedy: stepped "
           f"prefill_s={res['prefill_s']:.4f} generate_s={res['gen_s']:.4f} "
           f"tokens/s={res['tok_s']:.2f} ms/token={res['ms_per_token']:.4f} "
@@ -1697,9 +1894,10 @@ def decode_run(torch, kernels, smi, label, cfg, run) -> dict:
 def prefill_check(torch, dev, kernels, smi, label, model, res, layers,
                   tol=PREFILL_TOL, moe_cfg=None) -> None:
     """`prefill_fn` on `decode_run`'s prompt under flash and blockwise:
-    its time, its launches (held: one flash launch a layer under flash,
-    none under blockwise), and its last logits against the stepped
-    decode's, held to `tol` (None: recorded only).  For an MoE model
+    its time, its launches (held: one flash launch a layer under flash for
+    a GQA model, none for MLA, whose attention is blockwise whatever the
+    switch, and none under blockwise), and its last logits against the
+    stepped decode's, held to `tol` (None: recorded only).  For an MoE model
     (`moe_cfg`) also flash against blockwise: both route the B*S tokens as
     one group, so only the attention differs; see `moe_prefill_pair`."""
     from repro_torch.models import moe
@@ -1740,7 +1938,7 @@ def prefill_check(torch, dev, kernels, smi, label, model, res, layers,
         if tol and not (mx <= tol["max"] and mean <= tol["mean"]):
             fail(f"decode {label}: prefill_fn ({impl}) against the stepped "
                  f"decode: max {mx:.3e} mean {mean:.3e}")
-        want_launches = layers if impl == "flash" else 0
+        want_launches = layers if impl == "flash" and model.cfg.mla is None else 0
         if n["flash_attention"] != want_launches or sum(n.values()) != want_launches:
             fail(f"decode {label}: prefill_fn ({impl}) launched {n}, want "
                  f"{want_launches} flash launches and nothing else")
@@ -1809,17 +2007,19 @@ def decode_profile(torch, dev, smi, label, model, res, steps: int = 8) -> None:
           f"| {smi}", flush=True)
 
 
-def profile_replay(torch, label: str, run) -> None:
-    """One replay (`run()` -> (params, stats)) under the profiler: its
-    device busy share, launches, host waits and top device ops."""
+def profile_replay(torch, label: str, run):
+    """One replay (`run()` -> (params, stats)) under the profiler: prints
+    its device busy share, launches, host waits and top device ops, and
+    returns `run()`'s result."""
     from torch.autograd import DeviceType
 
-    (_, st_p), prof = profile_run(torch, run)
+    out, prof = profile_run(torch, run)
+    st_p = out[1]
     wall_ms, busy_us, rows = prof["wall_ms"], prof["busy_us"], prof["rows"]
     if busy_us <= 0:
         print(f"profile {label}: the profiler recorded no device time "
               "(busy share not measured)")
-        return
+        return out
     waits = ""
     if "host_wait_s" in st_p.extra:
         waits = (f" host_wait_ms={st_p.extra['host_wait_s'] * 1e3:.3f} "
@@ -1834,6 +2034,7 @@ def profile_replay(torch, label: str, run) -> None:
                     reverse=True)[:12]:
         print(f"profile {label}: device {e.self_device_time_total / 1e3:9.3f} "
               f"ms x{e.count:<5d} {e.key[:70]}")
+    return out
 
 
 def profile_run(torch, fn):
@@ -1884,6 +2085,65 @@ def counted_run(kernels, fn):
         k["wrapper"].launches = 0
     out = fn()
     return out, {n: k["wrapper"].launches for n, k in kernels.items()}
+
+
+def count_forwards(obj) -> list:
+    """Make `obj` count the model's forward passes: each call of its per-row
+    loss adds one to the returned one-element counter."""
+    forwards, per_row = [0], obj.per_example_loss
+
+    def counted(params, batch):
+        forwards[0] += 1
+        return per_row(params, batch)
+
+    obj.per_example_loss = counted
+    return forwards
+
+
+@contextlib.contextmanager
+def bv_ratios():
+    """Each B v's ||Bv|| / ||v|| while the block runs, read from the output
+    of the engine's B v (multidot, solve, rank_update) as device scalars,
+    and turned into floats in the yielded list when the block ends."""
+    from repro_torch.core import engine
+
+    ratios, plain = [], engine.lbfgs_hvp_fused
+
+    def recording(dW, dG, v, valid=None):
+        out = plain(dW, dG, v, valid)
+        ratios.append(out.norm() / v.norm())
+        return out
+
+    engine.lbfgs_hvp_fused = recording
+    try:
+        yield ratios
+    finally:
+        engine.lbfgs_hvp_fused = plain
+    ratios[:] = [r.item() for r in ratios]
+
+
+def replay_line(label, train_s, st_u, st, d_ui, d_us, ratios, dgc) -> str:
+    """A replay's numbers on one line: the times, the seven counters, the
+    distances, each B v's ||Bv||/||v|| against the guard's clip, and the
+    streamed store's counters."""
+    x = st.extra
+    return (f"{label}: train_s={train_s:.4f} baseline_s={st_u.wall_time_s:.4f} "
+            f"replay_s={st.wall_time_s:.4f} "
+            + " ".join(f"{k}={v}" for k, v in st.counters().items())
+            + f" d_ui={d_ui:.6e} d_us={d_us:.6e} d_ui/d_us={d_ui / d_us:.4e} "
+            f"||Bv||/||v|| {' '.join(f'{r:.4e}' for r in ratios)} (clip "
+            f"{dgc.guard_norm_clip:g}) store={x['store']} windows={x['windows']} "
+            f"host_wait_s={x['host_wait_s']:.4f} hbm_high_water={x['hbm_high_water']}")
+
+
+def check_replay_launches(label: str, n: dict, st, names=RESIDENT) -> None:
+    """Each of the replay's kernels `names` launched once per approx step,
+    and at least once where the Algorithm-4 guard sent a segment back (its
+    steps re-run as explicit steps)."""
+    for k in names:
+        if n[k] <= 0 or (st.guard_fallbacks == 0 and n[k] != st.approx_steps):
+            fail(f"{label}: {k} launched {n[k]} times for {st.approx_steps} approx "
+                 f"steps and {st.guard_fallbacks} guard fallbacks")
 
 
 def logreg_phase(torch, np, dev, kernels) -> dict:
@@ -2114,6 +2374,32 @@ def online_phase(torch, np, dev, kernels) -> None:
                  f"{k_run['n'][k]} times for {approx} approx steps")
 
 
+def lm_setup(torch, np, dev, arch="internlm2-1.8b", dtype=None):
+    """Phase 9's recipe on `arch` at full width and LM["layers"] layers:
+    (cfg, model, p0, docs, meta, the DeltaGrad config, removed rows, the
+    objective under flash, in the compute `dtype`: None is the model's
+    bf16)."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core.history import HistoryMeta
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models.registry import build
+
+    cfg = dc.replace(get_config(arch), n_layers=LM["layers"])
+    model = build(cfg)
+    p0 = model.init(seed=0, device=dev)
+    docs = token_stream(LM["docs"], LM["seq"], cfg.vocab, seed=0)
+    meta = HistoryMeta(n=LM["docs"], batch_size=LM["batch"], seed=LM["seed"],
+                       steps=LM["steps"], lr_schedule=((0, LM["lr"]),))
+    dgc = dg.DeltaGradConfig(**LM_DG)
+    removed = np.linspace(3, 120, 4).astype(np.int64)
+    obj = dg.Objective.from_model(model, loss_chunk=LM["loss_chunk"],
+                                  attn_impl="flash", dtype=dtype)
+    return cfg, model, p0, docs, meta, dgc, removed, obj
+
+
 def lm_phase(torch, np, dev, kernels) -> dict:
     """Phase 9: InternLM2-1.8B at full width (2 layers), the flash kernel
     on every forward pass, through the three entry points.  Returns the
@@ -2121,35 +2407,14 @@ def lm_phase(torch, np, dev, kernels) -> dict:
     import dataclasses as dc
     import gc
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.core import deltagrad as dg
-    from repro_torch.core.history import HistoryMeta
-    from repro_torch.data.synthetic import token_stream
-    from repro_torch.core import engine
-    from repro_torch.models.registry import build
 
     t_phase = time.perf_counter()
     print(f"lm: MemAvailable {mem_available_gb():.1f} GiB at the start", flush=True)
-    cfg = dc.replace(get_config("internlm2-1.8b"), n_layers=LM["layers"])
-    model = build(cfg)
-    p0 = model.init(seed=0, device=dev)
+    cfg, model, p0, docs, meta, dgc, removed, obj = lm_setup(torch, np, dev)
     if p0.numel != LM["n_params"]:
         fail(f"lm: p = {p0.numel}, want {LM['n_params']}")
-    docs = token_stream(LM["docs"], LM["seq"], cfg.vocab, seed=0)
-    meta = HistoryMeta(n=LM["docs"], batch_size=LM["batch"], seed=LM["seed"],
-                       steps=LM["steps"], lr_schedule=((0, LM["lr"]),))
-    dgc = dg.DeltaGradConfig(**LM_DG)
-    removed = np.linspace(3, 120, 4).astype(np.int64)
-    obj = dg.Objective.from_model(model, loss_chunk=LM["loss_chunk"],
-                                  attn_impl="flash")
-    forwards = [0]
-    per_row = obj.per_example_loss
-
-    def counted(params, batch):  # one forward pass of the model per call
-        forwards[0] += 1
-        return per_row(params, batch)
-
-    obj.per_example_loss = counted
+    forwards = count_forwards(obj)
     print(f"lm: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/"
           f"{cfg.n_kv_heads} d_head={cfg.head_dim} d_ff={cfg.d_ff} "
           f"vocab={cfg.vocab} layers={cfg.n_layers} of 24 p={p0.numel} "
@@ -2193,39 +2458,18 @@ def lm_phase(torch, np, dev, kernels) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     w_u, st_u = dg.baseline_retrain(obj, docs, meta, p0, removed)
-    # each B v's ||Bv|| / ||v|| against the guard's clip, read from the
-    # output of the engine's B v (multidot, solve, rank_update) for this
-    # run (device scalars, read after)
-    ratios = []
-    plain_hvp = engine.lbfgs_hvp_fused
-
-    def recording(dW, dG, v, valid=None):
-        out = plain_hvp(dW, dG, v, valid)
-        ratios.append(out.norm() / v.norm())
-        return out
-
-    engine.lbfgs_hvp_fused = recording
-    try:
+    with bv_ratios() as ratios:
         w_i, st = dg.deltagrad_retrain(obj, hist, docs, removed, dgc)
-    finally:
-        engine.lbfgs_hvp_fused = plain_hvp
     n = launches()
     fwd = forwards[0]
-    bv_ratio = [r.item() for r in ratios]
-    print(f"lm f32 host: ||Bv||/||v|| per B v (clip {dgc.guard_norm_clip:g}): "
-          + ", ".join(f"{r:.4e}" for r in bv_ratio), flush=True)
     peak = torch.cuda.max_memory_allocated()
     kernels["flash_attention"]["launches"] = n["flash_attention"]
     d_ui = (w_u.flat - w_i.flat).norm().item()
     d_us = (w_u.flat - w_star.flat).norm().item()
     x = st.extra
-    print(f"lm f32 host: train_s={train_s:.4f} baseline_s={st_u.wall_time_s:.4f} "
-          f"replay_s={st.wall_time_s:.4f} "
-          + " ".join(f"{k}={v}" for k, v in st.counters().items())
-          + f" d_ui={d_ui:.6e} d_us={d_us:.6e} d_ui/d_us={d_ui / d_us:.4e} "
-          f"store={x['store']} decode={x['stream_decode']} windows={x['windows']} "
-          f"depth={x['prefetch_depth']} host_wait_s={x['host_wait_s']:.4f} "
-          f"hbm_high_water={x['hbm_high_water']} host_stage_high={x['host_stage_high']} "
+    print(replay_line("lm f32 host", train_s, st_u, st, d_ui, d_us, ratios, dgc)
+          + f" decode={x['stream_decode']} depth={x['prefetch_depth']} "
+          f"host_stage_high={x['host_stage_high']} "
           f"compression_ratio={x['compression_ratio']:.4f} "
           f"host_bytes={hist.nbytes()} max_memory_allocated={peak} "
           f"forward_passes={fwd} launches {json.dumps(n)}", flush=True)
@@ -2243,40 +2487,13 @@ def lm_phase(torch, np, dev, kernels) -> dict:
     if not n["flash_attention"] == LM["layers"] * fwd > 0:
         fail(f"lm: flash launched {n['flash_attention']} times for {fwd} "
              f"forward passes of {LM['layers']} layers")
-    for k in ("fused_update", "multidot", "rank_update"):
-        if st.approx_steps <= 0 or (st.guard_fallbacks == 0
-                                    and n[k] != st.approx_steps):
-            fail(f"lm: {k} launched {n[k]} times for {st.approx_steps} approx steps")
+    if st.approx_steps <= 0:
+        fail("lm: the replay took no approx step")
+    check_replay_launches("lm", n, st)
     if n["dequant_update"] or n["dequant_sub"]:
         fail("lm: a dequant kernel ran on the f32 (fetch-mode) path")
     f32_host_bytes = hist.nbytes()
     del hist, w_i
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # the same path with the plain blockwise attention in every forward
-    # pass: how far the replay's decisions hang on the attention's rounding
-    # (both attentions meet the model-level bar above)
-    blockwise = dg.Objective.from_model(model, loss_chunk=LM["loss_chunk"])
-    t0 = time.perf_counter()
-    w_star_b, hist_b = dg.sgd_train_with_cache(blockwise, p0, docs, meta, tier="host",
-                                               codec="f32", window=LM["window"])
-    torch.cuda.synchronize()
-    train_b = time.perf_counter() - t0
-    w_u_b, st_u_b = dg.baseline_retrain(blockwise, docs, meta, p0, removed)
-    w_i_b, st_b = dg.deltagrad_retrain(blockwise, hist_b, docs, removed, dgc)
-    d_ui_b = (w_u_b.flat - w_i_b.flat).norm().item()
-    d_us_b = (w_u_b.flat - w_star_b.flat).norm().item()
-    print(f"lm f32 host blockwise attention: train_s={train_b:.4f} "
-          f"baseline_s={st_u_b.wall_time_s:.4f} replay_s={st_b.wall_time_s:.4f} "
-          + " ".join(f"{k}={v}" for k, v in st_b.counters().items())
-          + f" d_ui={d_ui_b:.6e} d_us={d_us_b:.6e} d_ui/d_us={d_ui_b / d_us_b:.4e}; "
-          f"flash vs blockwise |w*_f - w*_b|={(w_star.flat - w_star_b.flat).norm().item():.6e} "
-          f"|w_U,f - w_U,b|={(w_u.flat - w_u_b.flat).norm().item():.6e} "
-          f"(flash d_us {d_us:.6e})", flush=True)
-    if not np.isfinite(d_ui_b):
-        fail(f"lm blockwise: d_ui {d_ui_b} is not finite")
-    del blockwise, hist_b, w_star_b, w_u_b, w_i_b
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2311,11 +2528,8 @@ def lm_phase(torch, np, dev, kernels) -> dict:
     if not (torch.equal(w_k.flat, w_f.flat) and st_k.counters() == st_f.counters()):
         fail("lm delta_int8: kernel mode is not bitwise fetch mode "
              f"({(w_k.flat - w_f.flat).abs().max().item():.3e})")
-    for k in ("dequant_update", "dequant_sub", "multidot", "rank_update"):
-        if st_k.approx_steps <= 0 or (st_k.guard_fallbacks == 0
-                                      and n_k[k] != st_k.approx_steps):
-            fail(f"lm delta_int8 kernel: {k} launched {n_k[k]} times for "
-                 f"{st_k.approx_steps} approx steps")
+    check_replay_launches("lm delta_int8 kernel", n_k, st_k,
+                          ("dequant_update", "dequant_sub", "multidot", "rank_update"))
     # every window of 2 steps carries the f32 keyframes of its key window
     # (T = 12 < 16: one), so on the device the codes save little; in host
     # RAM the path is a third of the f32 one
@@ -2332,6 +2546,52 @@ def lm_phase(torch, np, dev, kernels) -> dict:
     return {"fused_update": n["fused_update"], "multidot": n["multidot"],
             "rank_update": n["rank_update"], "dequant_update": n_k["dequant_update"],
             "dequant_sub": n_k["dequant_sub"]}
+
+
+def lm_blockwise(torch, np, dg, model, p0, docs, meta, dgc, removed, w_star,
+                 w_u) -> None:
+    """Phase 9's f32 host path with the plain blockwise attention in every
+    forward pass, beside the flash run's w* and w_U: how far the replay's
+    decisions hang on the attention's rounding (both attentions meet the
+    model-level bar of phase 9).  Only ``--lm-blockwise`` runs it."""
+    blockwise = dg.Objective.from_model(model, loss_chunk=LM["loss_chunk"])
+    t0 = time.perf_counter()
+    w_star_b, hist_b = dg.sgd_train_with_cache(blockwise, p0, docs, meta, tier="host",
+                                               codec="f32", window=LM["window"])
+    torch.cuda.synchronize()
+    train_b = time.perf_counter() - t0
+    w_u_b, st_u_b = dg.baseline_retrain(blockwise, docs, meta, p0, removed)
+    w_i_b, st_b = dg.deltagrad_retrain(blockwise, hist_b, docs, removed, dgc)
+    d_ui_b = (w_u_b.flat - w_i_b.flat).norm().item()
+    d_us_b = (w_u_b.flat - w_star_b.flat).norm().item()
+    d_us = (w_u.flat - w_star.flat).norm().item()
+    print(f"lm f32 host blockwise attention: train_s={train_b:.4f} "
+          f"baseline_s={st_u_b.wall_time_s:.4f} replay_s={st_b.wall_time_s:.4f} "
+          + " ".join(f"{k}={v}" for k, v in st_b.counters().items())
+          + f" d_ui={d_ui_b:.6e} d_us={d_us_b:.6e} d_ui/d_us={d_ui_b / d_us_b:.4e}; "
+          f"flash vs blockwise |w*_f - w*_b|={(w_star.flat - w_star_b.flat).norm().item():.6e} "
+          f"|w_U,f - w_U,b|={(w_u.flat - w_u_b.flat).norm().item():.6e} "
+          f"(flash d_us {d_us:.6e})", flush=True)
+    if not np.isfinite(d_ui_b):
+        fail(f"lm blockwise: d_ui {d_ui_b} is not finite")
+
+
+def lm_blockwise_main() -> int:
+    """``--lm-blockwise``: phase 9's flash recording and BaseL (for w* and
+    w_U), then its f32 host path again under the plain blockwise attention
+    (`lm_blockwise`).  Recorded, not held beyond finite values."""
+    def body(torch, np, dev):
+        from repro_torch.core import deltagrad as dg
+
+        _, model, p0, docs, meta, dgc, removed, obj = lm_setup(torch, np, dev)
+        w_star, hist = dg.sgd_train_with_cache(obj, p0, docs, meta, tier="host",
+                                               codec="f32", window=LM["window"])
+        del hist
+        gc_collect()
+        w_u, _ = dg.baseline_retrain(obj, docs, meta, p0, removed)
+        lm_blockwise(torch, np, dg, model, p0, docs, meta, dgc, removed, w_star, w_u)
+
+    return opt_in_main(body)
 
 
 def session_phase(torch, np, dev, kernels, rcv1: dict) -> float:
@@ -2960,12 +3220,9 @@ def serve_phase(torch, np, dev, kernels, rcv1: dict, serial_ms: float) -> None:
           flush=True)
 
 
-def moe_dg_main(spec: str) -> int:
-    """``--moe-dg DTYPE,T,J0``: phase 15 (d) alone at another cut, the
-    compute dtype bf16 or f32, T steps and burn-in j0 (the host f32
-    history is T x 2 vectors of 4.77 GB on a 96 GiB host: T <= 8).  Its
-    numbers are recorded, not held against d_us; it exits 0 unless a check
-    that phase holds at any cut fails."""
+def opt_in_main(body) -> int:
+    """`body(torch, np, dev)` alone on the card, for an opt-in flag: the
+    kernels built first; exits 0 unless a check fails."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2976,21 +3233,49 @@ def moe_dg_main(spec: str) -> int:
 
     from repro_torch.kernels import _build
 
-    name, steps, burn_in = spec.split(",")
-    dtype = {"bf16": None, "f32": torch.float32}[name]
     _build.build_all()
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     # the pair solve's cuSOLVER handle, made before the replay fills the card
     torch.linalg.solve_ex(torch.eye(2, device="cuda"), torch.ones(2, 1, device="cuda"))
-    moe_deltagrad(torch, np, torch.device("cuda"), kernel_table(), nvidia_smi(),
-                  steps=int(steps), burn_in=int(burn_in), dtype=dtype,
-                  main_path=False)
+    body(torch, np, torch.device("cuda"))
+    print(nvidia_smi())
     for f in FAILURES:
         print(f"  {f}", file=sys.stderr)
     return 1 if FAILURES else 0
 
 
+def moe_dg_main(spec: str) -> int:
+    """``--moe-dg DTYPE,T,J0``: phase 15 (d) alone at another cut, the
+    compute dtype bf16 or f32, T steps and burn-in j0 (the host f32
+    history is T x 2 vectors of 4.77 GB on a 96 GiB host: T <= 8).  Its
+    numbers are recorded, not held against d_us."""
+    name, steps, burn_in = spec.split(",")
+
+    def body(torch, np, dev):
+        dtype = {"bf16": None, "f32": torch.float32}[name]
+        moe_deltagrad(torch, np, dev, kernel_table(), nvidia_smi(), steps=int(steps),
+                      burn_in=int(burn_in), dtype=dtype, main_path=False)
+
+    return opt_in_main(body)
+
+
+def mla_dg_main(name: str) -> int:
+    """``--mla-dg DTYPE``: phase 16 (d) alone in the compute dtype bf16 or
+    f32, without the profile and the kernels' comparison; in f32 d_ui <
+    d_us is held."""
+    def body(torch, np, dev):
+        dtype = {"bf16": None, "f32": torch.float32}[name]
+        mla_deltagrad(torch, np, dev, kernel_table(), nvidia_smi(), dtype=dtype,
+                      main_path=False)
+
+    return opt_in_main(body)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--moe-dg"] and len(sys.argv) == 3:
         sys.exit(moe_dg_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--mla-dg"] and len(sys.argv) == 3:
+        sys.exit(mla_dg_main(sys.argv[2]))
+    if sys.argv[1:] == ["--lm-blockwise"]:
+        sys.exit(lm_blockwise_main())
     sys.exit(main())

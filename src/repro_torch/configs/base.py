@@ -1,11 +1,12 @@
-"""The model configuration, for the GQA token decoders and the MoE family.
+"""The model configuration, for the GQA token decoders, the MoE family and
+multi-head latent attention (MLA).
 
-The port's copy of the JAX package's ``configs/base.py``: `ModelConfig`
-and `MoEConfig` with the same field names and defaults (tests hold them
-field by field against the reference's entries).  The fields of the other
-families (MLA, SSM, xLSTM, enc-dec, frontends) wait for the model families
-that read them; `models.transformer.layout_of` raises for a config that
-needs them.
+The port's copy of the JAX package's ``configs/base.py``: `ModelConfig`,
+`MLAConfig` and `MoEConfig` with the same field names and defaults (tests
+hold them field by field against the reference's entries).  The fields of
+the other families (SSM, xLSTM, enc-dec, frontends) wait for the model
+families that read them; `models.transformer.layout_of` raises for a
+config that needs them.
 """
 
 from __future__ import annotations
@@ -13,6 +14,15 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
 
 
 @dataclass(frozen=True)
@@ -41,12 +51,13 @@ class ModelConfig:
     d_ff: int
     vocab: int
     d_head: int = 0  # 0 -> d_model // n_heads
-    attention: str = "gqa"
+    attention: str = "gqa"  # gqa | mla
     mlp: str = "swiglu"  # swiglu | relu_sq | gelu | moe
     qk_norm: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     # repeating block pattern of a hybrid stack; None: n_layers x ("attn",)
     layout_unit: Optional[Tuple[str, ...]] = None
@@ -61,8 +72,8 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
-        defaults: a dense stack, and for MoE 8 experts, top-2), with
-        `overrides` on top."""
+        defaults: a dense stack, for MLA ranks 32 / 16 and head dims of 8,
+        and for MoE 8 experts, top-2), with `overrides` on top."""
         small = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -72,6 +83,11 @@ class ModelConfig:
             vocab=256,
             d_head=16,
         )
+        if self.mla:
+            small["mla"] = MLAConfig(
+                q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
+                qk_rope_head_dim=8, v_head_dim=8,
+            )
         if self.moe:
             small["moe"] = dataclasses.replace(
                 self.moe, num_experts=8, top_k=2, d_expert=32,

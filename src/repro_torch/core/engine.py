@@ -74,7 +74,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.history import HistoryMeta, TrainingHistory
+from repro_torch.core.history import HistoryMeta, TrainingHistory, _host_copy
 from repro_torch.core.lbfgs import LbfgsBuffer, ring_valid_mask
 from repro_torch.core.store import (EncodedWindow, HistoryStore,
                                    SegmentStreamer, auto_window, decode_row)
@@ -325,9 +325,8 @@ def run_training(objective, params0: FlatParams, ds: Dataset,
             new, vel = _step(params.flat, vel, g, meta.lr_at(t), meta.momentum)
             params = params.with_flat(new)
         if tier != "stacked":  # the window goes to the host, through the codec
-            host_w, host_g = W[:b - a].cpu().numpy(), G[:b - a].cpu().numpy()
-            for i in range(b - a):
-                history.append(host_w[i], host_g[i])
+            for i in range(b - a):  # W is reused by the next window
+                history.append(_host_copy(W[i]), _host_copy(G[i]))
     if tier == "stacked":
         history.set_stacked(W, G, final_params=params)
     else:

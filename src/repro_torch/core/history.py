@@ -105,7 +105,7 @@ class F32Codec:
     name = "f32"
 
     def encode(self, row: np.ndarray, bounds) -> Encoded:
-        return Encoded(np.array(row, dtype=np.float32))
+        return Encoded(np.asarray(row, dtype=np.float32))  # no copy: rows come fresh
 
 
 class BF16Codec:
@@ -317,7 +317,8 @@ class TrainingHistory:
         return self._bases[kwid]
 
     def append(self, w: np.ndarray, g: np.ndarray) -> None:
-        """Encode and store entry t = len(self): host rows (p,) of w_t, g_t."""
+        """Encode and store entry t = len(self): host rows (p,) of w_t, g_t
+        that nothing else writes (the f32 codec keeps them as they are)."""
         if self.tier == "stacked":
             raise ValueError("append on a stacked history: the recording "
                              "loop hands it whole to set_stacked")
@@ -443,10 +444,10 @@ class TrainingHistory:
             self.G[t] = torch.as_tensor(g, device=self.G.device)
             return
 
-        def host(x) -> np.ndarray:
+        def host(x) -> np.ndarray:  # a fresh row, which the codec may keep
             if isinstance(x, torch.Tensor):
-                x = x.detach().cpu().numpy()
-            return np.asarray(x, dtype=np.float32)
+                return _host_copy(x)
+            return np.array(x, dtype=np.float32)
 
         w, g = host(w), host(g)
         bounds = self.bounds

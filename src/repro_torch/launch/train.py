@@ -14,7 +14,9 @@ for flag, plus ``--device`` (the card unless ``cpu`` is asked for):
 Resume: re-run the same command; the driver picks up the last complete
 step (a checkpoint holds the whole `TrainState`: params, AdamW's m and v
 and the step, under the reference's names, so a checkpoint either
-package wrote resumes in the other).
+package wrote resumes in the other).  The last step's checkpoint is
+written once: where ``--ckpt-every`` divides ``--steps`` the reference
+writes the same state there a second time.
 """
 
 from __future__ import annotations
@@ -82,8 +84,8 @@ def train_lm(args) -> dict:
                   f"p50 {timer.percentile(0.5)*1e3:6.1f} ms")
         if args.ckpt and (step + 1) % args.ckpt_every == 0:
             ckpt.save(args.ckpt, step + 1, state)
-    if args.ckpt:
-        ckpt.save(args.ckpt, args.steps, state)
+    if args.ckpt and ckpt.latest_step(args.ckpt) != args.steps:
+        ckpt.save(args.ckpt, args.steps, state)  # unless the loop just wrote it
     _sync(dev)
     print("done.")
     return {"state": state, "losses": losses, "lrs": lrs, "start": start,

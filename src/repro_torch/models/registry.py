@@ -26,10 +26,10 @@ class Model:
 
     def init(self, seed: int = 0, device=None) -> FlatParams:
         """Random weights from ``torch.Generator(device).manual_seed(seed)``
-        (None: the card)."""
-        dev = torch.device("cuda" if device is None else device)
-        return transformer.init_params(
-            self.cfg, torch.Generator(device=dev).manual_seed(seed))
+        (None: the card; raises without one)."""
+        from repro_torch.core.engine import resolve_device
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        return transformer.init_params(self.cfg, gen)
 
     def loss_fn(self, params, batch, **kw) -> torch.Tensor:
         """The batch's mean token loss, plus an MoE router's aux term
@@ -53,9 +53,10 @@ class Model:
 
     def cache_init(self, batch: int, seq: int, device=None):
         """Empty KV caches (`transformer.init_caches`) on `device` (None:
-        the card)."""
-        dev = torch.device("cuda" if device is None else device)
-        return transformer.init_caches(self.cfg, batch, seq, device=dev)
+        the card; raises without one)."""
+        from repro_torch.core.engine import resolve_device
+        return transformer.init_caches(self.cfg, batch, seq,
+                                       device=resolve_device(device))
 
     def objective(self, *, remat: bool = False,
                   loss_chunk: Optional[int] = None, l2: float = 0.0,

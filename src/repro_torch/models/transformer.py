@@ -1,10 +1,12 @@
-"""Decoder-only LM: a stack of GQA blocks over stacked layer weights.
+"""Decoder-only LM: a stack of attention blocks over stacked layer weights.
 
 The port's copy of the JAX package's ``models/transformer.py`` for the GQA
-token decoders (InternLM2 and its kind) and the MoE family (Qwen-MoE,
-Moonlight).  Parameters are one `FlatParams` keyed by the reference's key
-paths (``embed``, ``final_norm/scale``, ``lm_head``,
-``u0/{ln1,ln2}/scale``, ``u0/mixer/{wk,wo,wq,wv}``, and
+token decoders (InternLM2 and its kind), the MoE family (Qwen-MoE,
+Moonlight) and multi-head latent attention (MiniCPM3).  Parameters are one
+`FlatParams` keyed by the reference's key paths (``embed``,
+``final_norm/scale``, ``lm_head``, ``u0/{ln1,ln2}/scale``,
+``u0/mixer/{wk,wo,wq,wv}`` for GQA or ``u0/mixer/{kv_norm/scale,
+q_norm/scale,w_dkv,w_dq,w_uk,w_uq,w_uv,wo}`` for MLA, and
 ``u0/mlp/{w_down,w_gate,w_up}`` for a dense FFN or
 ``u0/mlp/{router,shared/{w_down,w_gate,w_up},shared_gate,w_down,w_gate,
 w_up}`` for an MoE one), each layer weight stacked over the layers on a
@@ -17,7 +19,8 @@ Forward flavours, as in the reference:
   * `lm_loss` (and its per-row form `lm_loss_rows`): train, full
     sequence, chunked cross-entropy, plus the MoE router's aux term;
   * `prefill`: full sequence, forward only, the last position's logits;
-  * `decode_step`: one token against the KV caches of `init_caches`.
+  * `decode_step`: one token against the KV caches of `init_caches` (an
+    MLA block's is its latent cache, `models.mla`).
 
 An MoE FFN routes each token group under its own capacity
 (`models.moe`): the batch's tokens in `lm_loss` and `prefill`, each row's
@@ -40,13 +43,14 @@ from repro_torch.models.attention_config import (attention_impl,
 from repro_torch.models.layers import (gqa_apply, gqa_cache_init, gqa_decode,
                                        gqa_init, mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.models.mla import (mla_apply, mla_cache_init, mla_decode,
+                                    mla_init)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.utils.tree import FlatParams, flatten_nested, nested
 
 
 # what waits for which slice: ROADMAP.md queue 1 item 9, in order
 _NOT_PORTED = {
-    "mla": "multi-head latent attention (item 9b)",
     "mamba2": "Mamba2 and the hybrid stacks (item 9c)",
     "xlstm": "xLSTM (item 9d)",
     "encdec": "the encoder-decoder family and its frame frontend (item 9e)",
@@ -54,23 +58,25 @@ _NOT_PORTED = {
 
 
 def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
-    """(unit, n_units) of a GQA token decoder whose unit is one attention
-    block, whatever its family label (the reference's `layout_of` looks
-    only at the unit), with a dense or an MoE FFN; raises for every other
-    model."""
+    """(unit, n_units) of a token decoder whose unit is one attention block
+    (GQA or MLA), whatever its family label (the reference's `layout_of`
+    looks only at the unit), with a dense or an MoE FFN; raises for every
+    other model."""
     unit = tuple(cfg.layout_unit) if cfg.layout_unit else ("attn",)
     if cfg.family == "audio" or cfg.frontend != "tokens":
         missing = "encdec"
     elif (cfg.mlp == "moe") != (cfg.moe is not None):
         raise ValueError(f"{cfg.name}: mlp {cfg.mlp!r} with moe {cfg.moe!r}; "
                          "an MoE FFN takes mlp='moe' and its MoEConfig")
-    elif cfg.attention == "mla":
-        missing = "mla"
+    elif (cfg.attention == "mla") != (cfg.mla is not None):
+        raise ValueError(f"{cfg.name}: attention {cfg.attention!r} with mla "
+                         f"{cfg.mla!r}; an MLA mixer takes attention='mla' "
+                         "and its MLAConfig")
     elif {"mamba2", "attn_shared"} & set(unit):
         missing = "mamba2"
     elif {"mlstm", "slstm"} & set(unit):
         missing = "xlstm"
-    elif unit == ("attn",) and cfg.attention == "gqa":
+    elif unit == ("attn",) and cfg.attention in ("gqa", "mla"):
         return unit, cfg.n_layers
     else:
         raise NotImplementedError(
@@ -91,13 +97,15 @@ def _block_init(generator: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     dev = generator.device
     p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, dev),
                          "ln2": rmsnorm_init(cfg.d_model, dev),
-                         "mixer": gqa_init(generator, cfg.d_model, cfg.n_heads,
-                                           cfg.n_kv_heads, cfg.head_dim),
+                         "mixer": (mla_init(generator, cfg.d_model, cfg.n_heads,
+                                            cfg.mla) if cfg.mla else
+                                   gqa_init(generator, cfg.d_model, cfg.n_heads,
+                                            cfg.n_kv_heads, cfg.head_dim)),
                          "mlp": (moe_init(generator, cfg.d_model, cfg.moe)
                                  if cfg.moe else
                                  mlp_init(generator, cfg.d_model, cfg.d_ff,
                                           cfg.mlp))}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cfg.mla:  # the reference's MLA has no QK-norm
         p["mixer"]["q_norm"] = rmsnorm_init(cfg.head_dim, dev)
         p["mixer"]["k_norm"] = rmsnorm_init(cfg.head_dim, dev)
     return p
@@ -131,11 +139,27 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     _, L = layout_of(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     shapes = {"embed": (cfg.vocab, d), "final_norm/scale": (d,),
-              "u0/ln1/scale": (L, d), "u0/ln2/scale": (L, d),
-              "u0/mixer/wq": (L, d, cfg.n_heads * hd),
-              "u0/mixer/wk": (L, d, cfg.n_kv_heads * hd),
-              "u0/mixer/wv": (L, d, cfg.n_kv_heads * hd),
-              "u0/mixer/wo": (L, cfg.n_heads * hd, d)}
+              "u0/ln1/scale": (L, d), "u0/ln2/scale": (L, d)}
+    if cfg.mla:
+        m, H = cfg.mla, cfg.n_heads
+        shapes.update({
+            "u0/mixer/w_dq": (L, d, m.q_lora_rank),
+            "u0/mixer/q_norm/scale": (L, m.q_lora_rank),
+            "u0/mixer/w_uq": (L, m.q_lora_rank,
+                              H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+            "u0/mixer/w_dkv": (L, d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "u0/mixer/kv_norm/scale": (L, m.kv_lora_rank),
+            "u0/mixer/w_uk": (L, m.kv_lora_rank, H * m.qk_nope_head_dim),
+            "u0/mixer/w_uv": (L, m.kv_lora_rank, H * m.v_head_dim),
+            "u0/mixer/wo": (L, H * m.v_head_dim, d)})
+    else:
+        shapes.update({"u0/mixer/wq": (L, d, cfg.n_heads * hd),
+                       "u0/mixer/wk": (L, d, cfg.n_kv_heads * hd),
+                       "u0/mixer/wv": (L, d, cfg.n_kv_heads * hd),
+                       "u0/mixer/wo": (L, cfg.n_heads * hd, d)})
+        if cfg.qk_norm:
+            shapes["u0/mixer/q_norm/scale"] = (L, hd)
+            shapes["u0/mixer/k_norm/scale"] = (L, hd)
     if cfg.moe:
         E, f, fs = cfg.moe.num_experts, cfg.moe.d_expert, cfg.moe.d_shared
         shapes.update({"u0/mlp/router": (L, d, E),
@@ -151,9 +175,6 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         shapes["u0/mlp/w_down"] = (L, cfg.d_ff, d)
         if cfg.mlp == "swiglu":
             shapes["u0/mlp/w_gate"] = (L, d, cfg.d_ff)
-    if cfg.qk_norm:
-        shapes["u0/mixer/q_norm/scale"] = (L, hd)
-        shapes["u0/mixer/k_norm/scale"] = (L, hd)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab)
     return shapes
@@ -231,9 +252,13 @@ def _ffn(p, h: torch.Tensor, cfg: ModelConfig, per_row: bool):
 
 def _block_apply(p, x: torch.Tensor, cfg: ModelConfig, per_row: bool):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    h = gqa_apply(p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                  d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
-                  window=cfg.attn_window, qk_norm=cfg.qk_norm)
+    if cfg.mla:
+        h = mla_apply(p["mixer"], h, n_heads=cfg.n_heads, cfg=cfg.mla,
+                      rope_theta=cfg.rope_theta, window=cfg.attn_window)
+    else:
+        h = gqa_apply(p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                      d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
+                      window=cfg.attn_window, qk_norm=cfg.qk_norm)
     x = x + h
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     out, aux = _ffn(p["mlp"], h2, cfg, per_row)
@@ -342,6 +367,8 @@ def lm_loss(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
 
 def _block_cache_init(cfg: ModelConfig, batch: int, seq: int,
                       device=None) -> Dict[str, torch.Tensor]:
+    if cfg.mla:  # the latent cache: bf16, as the reference's default
+        return mla_cache_init(batch, seq, cfg.mla, device=device)
     win = cfg.attn_window
     s = min(seq, win) if win else seq
     return gqa_cache_init(batch, s, cfg.n_kv_heads, cfg.head_dim,
@@ -352,10 +379,14 @@ def _block_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
     """One layer on the step's x (B, 1, d); an MoE FFN routes the step's B
     tokens as one group, as the reference's ``moe_apply`` on (B, 1, d)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    h, cache = gqa_decode(p["mixer"], h, cache, n_heads=cfg.n_heads,
-                          n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
-                          rope_theta=cfg.rope_theta, window=cfg.attn_window,
-                          qk_norm=cfg.qk_norm)
+    if cfg.mla:
+        h, cache = mla_decode(p["mixer"], h, cache, n_heads=cfg.n_heads,
+                              cfg=cfg.mla, rope_theta=cfg.rope_theta)
+    else:
+        h, cache = gqa_decode(p["mixer"], h, cache, n_heads=cfg.n_heads,
+                              n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
+                              rope_theta=cfg.rope_theta, window=cfg.attn_window,
+                              qk_norm=cfg.qk_norm)
     x = x + h
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     out, _ = _ffn(p["mlp"], h2, cfg, per_row=False)
@@ -366,7 +397,8 @@ def init_caches(cfg: ModelConfig, batch: int, seq: int,
                 device=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """Empty caches for every block of the unit, stacked over the units on
     a leading axis: ``{"u0": {k, v: (n_units, B, S, Hkv, D) bf16, len:
-    (n_units,) int32}}``."""
+    (n_units,) int32}}``, or for MLA ``{"u0": {c_kv: (n_units, B, S,
+    kv_lora), k_rope: (n_units, B, S, rope) bf16, len}}``."""
     unit, n_units = layout_of(cfg)
     caches = {}
     for pos, _ in enumerate(unit):
@@ -383,7 +415,8 @@ def decode_step(params: Mapping[str, Any], batch, caches, cfg: ModelConfig,
     vocab) f32, new caches).  ``params`` is flat or nested; float32 leaves
     are cast to `dtype` on every call, as in the reference, and leaves
     already in `dtype` are used as they are (so a caller may cast once).
-    Each layer's cache is written in place (`layers.gqa_decode`)."""
+    Each layer's cache leaves but ``len`` are written in place
+    (`layers.gqa_decode`, `mla.mla_decode`)."""
     _, n_units = layout_of(cfg)
     p = cast_params(nested(params), dtype)
     x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
@@ -391,22 +424,21 @@ def decode_step(params: Mapping[str, Any], batch, caches, cfg: ModelConfig,
     lens = []
     for u in range(n_units):
         x, new = _block_decode(_slice(p["u0"], u), x,
-                               {"k": c["k"][u], "v": c["v"][u],
-                                "len": c["len"][u]}, cfg)
+                               {k: v[u] for k, v in c.items()}, cfg)
         lens.append(new["len"])
     h = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     logits = _lm_head(p, h[:, 0], cfg)
-    return logits, {"u0": {"k": c["k"], "v": c["v"],
-                           "len": torch.stack(lens)}}
+    return logits, {"u0": {**c, "len": torch.stack(lens)}}
 
 
 @torch.no_grad()
 def prefill(params: Mapping[str, Any], batch, cfg: ModelConfig, *,
             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Inference prefill: the full-sequence forward, forward only, giving
-    the last position's logits (B, vocab) f32.  Its attention goes through
-    `layers.full_attention`, so the flash kernel takes it under
-    ``use_attention_impl("flash")``."""
+    the last position's logits (B, vocab) f32.  A GQA block's attention
+    goes through `layers.full_attention`, so the flash kernel takes it
+    under ``use_attention_impl("flash")``; an MLA block's is blockwise
+    whatever the switch, as in the reference."""
     p = cast_params(nested(params), dtype)
     x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
     h, _ = forward_hidden(p, x, cfg, remat=False)

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import MLAConfig as JMLAConfig
 from repro.configs.registry import get_config as j_get_config
 from repro.launch import serve as j_serve
 from repro.models import layers as jl
@@ -45,7 +46,7 @@ from repro.models import transformer as jt
 from repro.models.registry import build as j_build
 from repro.models.registry import count_params as j_count_params
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import layers as tl
@@ -119,8 +120,23 @@ def test_full_size_parameter_counts_match(arch):
     assert ("u0/mlp/w_gate" in shapes) == (cfg.mlp == "swiglu")
 
 
+@pytest.mark.parametrize("change,ported", [  # the letters of item 9 ported since
+    pytest.param(dict(attention="mla"), (dict(mla=MLAConfig()), dict(mla=JMLAConfig())),
+                 id="change1-9b"),
+])
+def test_layout_takes_the_ported_families(change, ported):
+    """A family once refused by `layout_of` is taken now, and agrees with
+    the reference: the layout, the built model's config, the count."""
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=6, **change,
+                              **ported[0])
+    ref = dataclasses.replace(j_get_config("internlm2-1.8b"), n_layers=6, **change,
+                              **ported[1])
+    assert tt.layout_of(cfg) == jt.layout_of(ref) == (("attn",), 6)
+    assert build(cfg).cfg == cfg
+    assert count_params(cfg) == j_count_params(ref)
+
+
 @pytest.mark.parametrize("change,item", [  # ids as before the MoE family (9a)
-    pytest.param(dict(attention="mla"), "9b", id="change1-9b"),
     pytest.param(dict(family="hybrid", layout_unit=("mamba2",) * 5 + ("attn_shared",)),
                  "9c", id="change2-9c"),
     pytest.param(dict(family="ssm", layout_unit=("mlstm", "slstm"), mlp="none"), "9d",
@@ -137,7 +153,8 @@ def test_layout_raises_for_the_families_not_ported(change, item):
         build(cfg)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ARCHS + ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b",
+                                          "minicpm3-4b"])
 def test_layout_takes_every_gqa_token_decoder(arch):
     cfg = get_config(arch)
     assert tt.layout_of(cfg) == jt.layout_of(j_get_config(arch)) == (("attn",), cfg.n_layers)
