@@ -104,7 +104,22 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      bf16, where both packages' replays fall either side of 1 by the draw),
      with the replay kernels' launches and those kernels against their
      plain versions at that p, and the train CLI at that cut resumed from
-     step 4, held bitwise.
+     step 4, held bitwise;
+ 17. the Mamba2 hybrid, zamba2-7b at its published widths: `decode_main`
+     at all 78 layers (tokens/s, ms per step against the step's byte
+     bound, launches and busy share, memory, the SSM, conv and KV states'
+     bytes), `prefill_fn` (chunked SSD and the shared block's windowed
+     blockwise attention, no flash launch) against the stepped decode in
+     bf16 and, on 32 tokens, in f32, `torch.cumsum` on the card bitwise
+     the SSD's sequential f32 sum, the card against the port's CPU run
+     (full width at 6 layers in bf16, the reduced hybrid in f32), train
+     -> BaseL -> replay on phase 9's recipe and main path at 1 of 13 units
+     (p = 824,797,968) cut by host memory to T 10 and j0 4 and by the
+     card's to windows of one step with per-block remat, the replay under
+     the profiler, its d_ui/d_us recorded in bf16 (both packages' replays
+     fall either side of 1 by the draw), with the replay kernels' launches
+     and those kernels against their plain versions at that p, and the
+     train CLI at that cut resumed from step 4, held bitwise.
 
 Phase 2 also holds the bf16 flash kernel to the reference flash's f32 P:
 its mean |err|/(1+|plain|) below a quarter of the bf16-P softmax's.
@@ -122,6 +137,14 @@ its replay against BaseL.
 
 runs phase 16 (d) alone in f32 compute (or bf16) and holds d_ui < d_us in
 f32.
+
+    python3 chip_smoke.py --hybrid
+
+runs phase 17 alone, and
+
+    python3 chip_smoke.py --hybrid-dg f32
+
+phase 17 (d) alone in f32 compute (or bf16), holding d_ui < d_us in f32.
 
     python3 chip_smoke.py --lm-blockwise
 
@@ -270,6 +293,50 @@ MLA_LM = dict(n_params=501_406_208)
 # L-BFGS pairs (PERF.md section 7; `python tests/test_torch_mla.py
 # 256,128,bf16,8` prints both packages over 8 draws on the CPU)
 MLA_BF16_MISS = "PERF.md section 7, ROADMAP queue 3"
+# phase 17: the Mamba2 hybrid, zamba2-7b at its published widths (d_model
+# 3584, 13 units of five Mamba2 blocks and one shared attention block, 32
+# heads of 112 attending in a 4096 window, SSM d_state 64, head_dim 64, chunk
+# 128).  (a) `decode_main` at all 78 layers (p = 5,503,481,808: 22.01 GB f32
+# cast once to 11.01 GB bf16) on phase 14 (a)'s shape; (b) `prefill_fn`
+# (chunked SSD, windowed blockwise attention) against the stepped decode;
+# (c) card against CPU at full width and 6 layers (bf16), and the reduced
+# hybrid in f32; (d) DeltaGrad on phase 9's recipe and main path at 1 of 13
+# units (6 blocks, p = 824,797,968), cut by host memory: a step's f32 history
+# is 6.6 GB, so T 10 and j0 4 (phase 9's T 12 would hold 79 GB of the 96 GiB
+# host; j0 4 keeps four approx steps at T0 4); (e) the train CLI at (d)'s cut
+HYBRID_DECODE = dict(batch=16, prompt=128, gen=64, n_params=5_503_481_808)
+# the card holds the replay only with the objective checkpointing each
+# block's activations (`remat`: a Mamba2 block's chunked SSD keeps ~6-7 GB
+# of f32 intermediates for the backward pass at B 32, S 512) and windows of
+# one step (at 2, the staged windows took 26.4 GB and the replay 78.4 GB of
+# the 80 GB card; the pairs are 4 vectors of 3.3 GB and their stacked copy)
+HYBRID_LM = dict(layers=6, n_params=824_797_968, steps=10, burn_in=4, window=1,
+                 remat=True)
+# the reduced hybrid's f32 decode, card against CPU: its KV caches are bf16,
+# and a k or v value near a bf16 tie rounds the other way on the other
+# device, which moves the logits by up to ~3e-4 (the port against the JAX
+# package on the CPU, tests/test_torch_mamba2.py); with f32 caches the two
+# packages part by 4e-6
+HYBRID_F32_TOL = 1e-3
+# `prefill_fn` against the stepped decode.  In bf16 the hybrid's two forms
+# round differently by the reference's design (prefill: the causal conv and
+# SiLU in bf16; decode: the conv window and state in f32), and the gap grows
+# with depth: at 78 layers of the reduced width (d_model 64, B 4, a 128
+# prompt) the JAX package's own gap is max 0.23177 / mean 0.057679 and the
+# port's 0.27939 / 0.054775; in f32 compute both read 2.76e-3 / 5.9e-4, the
+# bf16 KV caches (`python tests/test_torch_mamba2.py prefill,78` on the CPU)
+HYBRID_PREFILL_TOL = dict(max=0.5, mean=0.1)
+HYBRID_PREFILL_F32 = dict(prompt=32, max=2e-2, mean=5e-3)
+# 17 (d)'s d_ui < d_us, by compute dtype, against both packages on the CPU
+# over 8 draws of the init and documents at d_model 128 (`python
+# tests/test_torch_mamba2.py 128,128,bf16,8 128,128,f32,8`): in bf16 the
+# JAX package misses in 2 draws and the port in 3, mostly different ones
+# (the bf16 gradient's rounding in the pairs, as on MLA), so it is recorded;
+# in f32 both miss in the same one draw, alike (140.76 / 140.61, the
+# counters equal) and meet it in the other 7, and the card's draw meets it,
+# so `--hybrid-dg f32` holds it there (True)
+HYBRID_DG_BAR = {"bf16": "both packages miss in bf16 by the draw on the CPU, "
+                         "PERF.md section 6", "f32": True}
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -1120,6 +1187,10 @@ def main() -> int:
     gc_collect()
     mla_phase(torch, np, dev, kernels)
 
+    # -- 17. the Mamba2 hybrid ---------------------------------------------------------------
+    gc_collect()
+    hybrid_phase(torch, np, dev, kernels)
+
     # -- results ---------------------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", file=sys.stderr)
@@ -1845,6 +1916,237 @@ def mla_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
     return lcfg
 
 
+def hybrid_phase(torch, np, dev, kernels) -> None:
+    """Phase 17: the Mamba2 hybrid (zamba2-7b) at its published widths
+    through the model facade's three paths, decode (`decode_main`), the
+    DeltaGrad objective (train -> BaseL -> replay) and the train CLI, each
+    run with the launch counts zeroed just before and read after; and the
+    card against the port's CPU run.  The shared block attends in a window,
+    which goes to blockwise attention whatever the flash switch, as in the
+    reference, and a Mamba2 block has no kernel of its own, so no path of
+    this phase launches flash."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"hybrid: MemAvailable {mem_available_gb():.1f} GiB at the start", flush=True)
+    marks = [t_phase]
+
+    def lap(part: str) -> None:  # where the phase's time goes
+        marks.append(time.perf_counter())
+        print(f"hybrid: {part} took {marks[-1] - marks[-2]:.1f} s", flush=True)
+
+    # (a) all 78 layers; (b) the chunked prefill against the stepped decode
+    cfg = get_config("zamba2-7b")
+    label = f"{cfg.name} {cfg.n_layers} layers"
+    res = decode_run(torch, kernels, smi, label, cfg, HYBRID_DECODE)
+    hybrid_step_bound(torch, smi, label, cfg, res)
+    lap("(a) decode_main at 78 layers")
+    model = build(cfg)
+    prefill_check(torch, dev, kernels, smi, label, model, res, cfg.n_layers,
+                  tol=HYBRID_PREFILL_TOL)
+    hybrid_prefill_f32(torch, dev, smi, label, model, res["prompt"])
+    cumsum_on_card(torch, dev, cfg)
+    lap("(b) prefill_fn")
+    decode_profile(torch, dev, smi, label, model, res, steps=1)
+    del res, model
+    gc_collect()
+    lap("(a) the decode profile")
+
+    # (c) the card against the port's CPU run
+    decode_cpu_parity(torch, np, dev, smi,
+                      dc.replace(cfg, n_layers=HYBRID_LM["layers"]))
+    rcfg = cfg.reduced()
+    mx, same = reduced_f32_parity(torch, np, dev, rcfg)
+    print(f"hybrid card vs cpu, reduced {cfg.name} in f32 (one unit, d_model "
+          f"{rcfg.d_model}, ssm {dc.asdict(rcfg.ssm)}, B {MOE_PARITY['batch']}, "
+          f"{MOE_PARITY['prompt']} + {MOE_PARITY['gen']} tokens): logits max |gap| "
+          f"{mx:.6e} (tol {HYBRID_F32_TOL}: bf16 KV caches); greedy tokens equal: "
+          f"{same}", flush=True)
+    if not (mx <= HYBRID_F32_TOL and same):
+        fail(f"hybrid card vs cpu reduced f32: logits {mx:.3e}, tokens equal {same}")
+    lap("(c) card against CPU")
+
+    # (d) DeltaGrad at 1 of 13 units; (e) the train CLI at that cut
+    lcfg = hybrid_deltagrad(torch, np, dev, kernels, smi)
+    lap("(d) DeltaGrad at 6 layers")
+    train_resume(torch, np, kernels, smi, lcfg, HYBRID_LM["n_params"], flash_per_step=0)
+    lap("(e) the train CLI, resumed")
+    print(f"hybrid: phase wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def hybrid_prefill_f32(torch, dev, smi, label, model, prompt) -> None:
+    """(b) in f32 compute at full width and depth: `prefill_fn` on the
+    first HYBRID_PREFILL_F32["prompt"] prompt tokens against the stepped
+    decode of the same tokens, both from `decode_main`'s f32 master weights
+    (seed 0): the two forms agree to the bf16 KV caches' rounding, which
+    shows the bf16 gap is rounding, not a fault."""
+    n = HYBRID_PREFILL_F32["prompt"]
+    params = model.init(seed=0, device=dev)
+    toks = torch.from_numpy(prompt[:, :n]).to(dev)
+    caches = model.cache_init(toks.shape[0], n, device=dev)
+    for t in range(n):
+        logits, caches = model.decode_fn(params, {"tokens": toks[:, t:t + 1]},
+                                         caches, dtype=torch.float32)
+    pre = model.prefill_fn(params, {"tokens": toks}, dtype=torch.float32)
+    gap = (pre - logits).abs()
+    mx, mean = gap.max().item(), gap.mean().item()
+    print(f"decode {label} prefill_fn f32 compute, {tuple(toks.shape)} tokens: "
+          f"against the stepped f32 decode's last logits max |gap| {mx:.6e} mean "
+          f"{mean:.6e} (tol {HYBRID_PREFILL_F32['max']} / {HYBRID_PREFILL_F32['mean']}) "
+          f"| {smi}", flush=True)
+    if not (mx <= HYBRID_PREFILL_F32["max"] and mean <= HYBRID_PREFILL_F32["mean"]):
+        fail(f"decode {label}: f32 prefill_fn against the stepped decode: max "
+             f"{mx:.3e} mean {mean:.3e}")
+    del params, caches
+    gc_collect()
+
+
+def cumsum_on_card(torch, dev, cfg) -> None:
+    """The SSD's within-chunk cumulative decay on the card, `torch.cumsum`
+    over axis 2 of (B, chunks, Q, H), against `cumsum_by_adds` (one f32 add
+    after another, the reference's order), bitwise, at 17 (d)'s shape."""
+    from repro_torch.models.mamba2 import _dims, cumsum_by_adds
+
+    _, H, _ = _dims(cfg.d_model, cfg.ssm)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    a = -torch.rand(LM["batch"], LM["seq"] // cfg.ssm.chunk, cfg.ssm.chunk, H,
+                    generator=gen, device=dev) * 16
+    one, adds = torch.cumsum(a, dim=2), cumsum_by_adds(a)
+    same = torch.equal(one, adds)
+    print(f"hybrid: torch.cumsum over a chunk of {cfg.ssm.chunk} on the card "
+          f"{tuple(a.shape)} against one f32 add after another: bitwise equal "
+          f"{same} (max |gap| {(one - adds).abs().max().item():.3e})", flush=True)
+    if not same:
+        fail("hybrid: torch.cumsum on the card is not the sequential f32 sum")
+
+
+def hybrid_step_bound(torch, smi, label, cfg, res) -> None:
+    """The decode state's bytes and a step's byte bound on the hybrid: the
+    bf16 weights, the shared block's once per occurrence (its weights are
+    read by each of the 13 units), the embedding's B rows, and the state
+    read and written (SSM and conv states) or read (the KV caches)."""
+    from repro_torch.models.mamba2 import _dims
+    from repro_torch.models.transformer import layout_of, param_shapes
+
+    unit, n_units = layout_of(cfg)
+    B, slots = HYBRID_DECODE["batch"], HYBRID_DECODE["prompt"] + HYBRID_DECODE["gen"]
+    n_mamba = unit.count("mamba2") * n_units
+    _, H, conv_dim = _dims(cfg.d_model, cfg.ssm)
+    ssm = n_mamba * B * H * cfg.ssm.head_dim * cfg.ssm.d_state * 4
+    conv = n_mamba * B * (cfg.ssm.d_conv - 1) * conv_dim * 4
+    kv = n_units * 2 * B * min(slots, cfg.attn_window) * cfg.n_kv_heads * cfg.head_dim * 2
+    shapes = param_shapes(cfg)
+    shared = sum(math.prod(v) for k, v in shapes.items() if k.startswith("shared/"))
+    p = sum(math.prod(v) for v in shapes.values())
+    weights = p - math.prod(shapes["embed"]) + B * cfg.d_model + (n_units - 1) * shared
+    step_bytes = 2 * weights + 2 * (ssm + conv) + kv
+    bound, _ = bound_ms(step_bytes, 0.0)
+    print(f"decode {label}: state bytes: ssm {ssm} ({n_mamba} Mamba2 blocks x B {B} "
+          f"x {H} heads x {cfg.ssm.head_dim} x {cfg.ssm.d_state} f32), conv {conv}, "
+          f"KV caches {kv} ({n_units} shared-block occurrences, bf16, "
+          f"{min(slots, cfg.attn_window)} slots); a step moves {step_bytes / 1e9:.3f} "
+          f"GB (bf16 weights {2 * weights / 1e9:.3f} GB with the shared block "
+          f"{n_units} times, the states read and written, the KV caches read): "
+          f"byte bound {bound:.4f} ms against {res['ms_per_token']:.4f} ms a step "
+          f"({res['ms_per_token'] / bound:.1f}x) | {smi}", flush=True)
+    if ssm != 1_908_408_320 or conv != 91_054_080 or kv != 572_522_496:
+        fail(f"decode {label}: state bytes ssm {ssm} conv {conv} kv {kv}")
+
+
+def hybrid_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
+    """17 (d): DeltaGrad on zamba2-7b at full width, 1 of its 13 units (6
+    blocks), on phase 9's recipe and main path (``attn_impl="flash"``,
+    which the windowed shared block never reaches; a host f32 history)
+    cut to T 10 and j0 4 by host memory and to windows of one step and
+    per-block remat by the card's (`HYBRID_LM`), in the compute `dtype`
+    (None: the model's bf16).  On the main path the
+    replay runs once, under the profiler, with the launch counts zeroed
+    just before and read after, and the three replay kernels are held
+    against their plain versions at this p.  Held: no flash or dequant
+    launch, each replay kernel launched once per approx step (at least
+    once where the guard sent a segment back), and d_ui < d_us where both
+    packages meet it on the CPU (`HYBRID_DG_BAR`).  ``--hybrid-dg f32``
+    runs this alone in f32 compute (`main_path` False).  Returns the
+    6-layer config, registered for the train CLI."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import register
+    from repro_torch.core import deltagrad as dg
+
+    what = "bf16" if dtype is None else "f32"
+    print(f"hybrid lm: MemAvailable {mem_available_gb():.1f} GiB at the start",
+          flush=True)
+    cfg, model, p0, docs, meta, dgc, removed, obj = lm_setup(
+        torch, np, dev, "zamba2-7b", dtype, layers=HYBRID_LM["layers"],
+        steps=HYBRID_LM["steps"], burn_in=HYBRID_LM["burn_in"],
+        window=HYBRID_LM["window"], remat=HYBRID_LM["remat"])
+    lcfg = register(dc.replace(cfg, name=f"{cfg.name}-{cfg.n_layers}l"))
+    if p0.numel != HYBRID_LM["n_params"]:
+        fail(f"hybrid lm: p = {p0.numel}, want {HYBRID_LM['n_params']}")
+    print(f"hybrid lm: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} of "
+          f"{cfg.head_dim} window={cfg.attn_window} ssm={dc.asdict(cfg.ssm)} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} layers={cfg.n_layers} of 78 (1 of 13 "
+          f"units) p={p0.numel} ({p0.numel * 4 / 1e9:.3f} GB a f32 vector) {what} "
+          f"compute docs={LM['docs']}x{LM['seq']} B={LM['batch']} T={meta.steps} "
+          f"T0={dgc.period} j0={dgc.burn_in} m={dgc.history_size} "
+          f"window={dgc.stream_window} removed={removed.tolist()}; the host f32 "
+          f"history needs {meta.steps * 2 * p0.numel * 4 / 1e9:.1f} GB (cut from "
+          f"T {LM['steps']}, j0 {LM_DG['burn_in']}); remat={HYBRID_LM['remat']}",
+          flush=True)
+    forwards = count_forwards(obj)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    w_star, hist = dg.sgd_train_with_cache(obj, p0, docs, meta, tier="host",
+                                           codec="f32", window=dgc.stream_window)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated()
+    w_u, st_u = dg.baseline_retrain(obj, docs, meta, p0, removed)
+    torch.cuda.reset_peak_memory_stats()
+    forwards[0] = 0
+
+    def replay():
+        return dg.deltagrad_retrain(obj, hist, docs, removed, dgc)
+
+    label = f"hybrid lm {what} compute, f32 host"
+    with bv_ratios() as ratios:
+        (w_i, st), n = counted_run(kernels, (lambda: profile_replay(
+            torch, f"{label} replay", replay)) if main_path else replay)
+    peak = torch.cuda.max_memory_allocated()
+    d_ui = (w_u.flat - w_i.flat).norm().item()
+    d_us = (w_u.flat - w_star.flat).norm().item()
+    print(replay_line(label, train_s, st_u, st, d_ui, d_us, ratios, dgc)
+          + (" (replay_s under the profiler)" if main_path else "")
+          + f" max_memory_allocated (train)={train_peak} (replay)={peak} "
+          f"host_bytes={hist.nbytes()} forward_passes={forwards[0]} launches "
+          f"{json.dumps(n)}; MemAvailable {mem_available_gb():.1f} GiB with the "
+          f"history | {smi}", flush=True)
+    if not (bool(torch.isfinite(w_i.flat).all()) and w_i.numel == HYBRID_LM["n_params"]):
+        fail("hybrid lm: replay parameters are not finite of the expected shape")
+    held = HYBRID_DG_BAR[what]
+    print(f"hybrid lm {what} compute: d_ui/d_us = {d_ui / d_us:.4e}: "
+          + ("below the bar of 1" if d_ui < d_us else "MISSES the bar of 1")
+          + (" (held)" if held is True else f" (recorded, not held; {held})"),
+          flush=True)
+    if held is True and not d_ui < d_us:
+        fail(f"hybrid lm {what}: d_ui {d_ui:.3e} not below d_us {d_us:.3e}")
+    if st.approx_steps <= 0:
+        fail("hybrid lm: the replay took no approx step")
+    if n["flash_attention"] or n["dequant_update"] or n["dequant_sub"]:
+        fail(f"hybrid lm: launches {n}: the shared block's attention is "
+             "windowed (blockwise) and the f32 history is fetched")
+    check_replay_launches("hybrid lm", n, st)
+    del w_star, w_u, w_i, p0, hist, obj, model
+    gc_collect()
+    if main_path:
+        replay_kernels_at(torch, dev, HYBRID_LM["n_params"], label="hybrid lm")
+    return lcfg
+
+
 def decode_run(torch, kernels, smi, label, cfg, run) -> dict:
     """`launch.serve.decode_main` on `cfg` (registered) at ``run``'s batch,
     prompt and gen under flash, with the launch counts zeroed just before
@@ -1895,8 +2197,9 @@ def prefill_check(torch, dev, kernels, smi, label, model, res, layers,
                   tol=PREFILL_TOL, moe_cfg=None) -> None:
     """`prefill_fn` on `decode_run`'s prompt under flash and blockwise:
     its time, its launches (held: one flash launch a layer under flash for
-    a GQA model, none for MLA, whose attention is blockwise whatever the
-    switch, and none under blockwise), and its last logits against the
+    a GQA model, none for MLA or for a windowed attention (the hybrid's
+    shared block), whose attention is blockwise whatever the switch, and
+    none under blockwise), and its last logits against the
     stepped decode's, held to `tol` (None: recorded only).  For an MoE model
     (`moe_cfg`) also flash against blockwise: both route the B*S tokens as
     one group, so only the attention differs; see `moe_prefill_pair`."""
@@ -1938,7 +2241,9 @@ def prefill_check(torch, dev, kernels, smi, label, model, res, layers,
         if tol and not (mx <= tol["max"] and mean <= tol["mean"]):
             fail(f"decode {label}: prefill_fn ({impl}) against the stepped "
                  f"decode: max {mx:.3e} mean {mean:.3e}")
-        want_launches = layers if impl == "flash" and model.cfg.mla is None else 0
+        # flash takes only a GQA block's causal attention without a window
+        flash = impl == "flash" and model.cfg.mla is None and not model.cfg.attn_window
+        want_launches = layers if flash else 0
         if n["flash_attention"] != want_launches or sum(n.values()) != want_launches:
             fail(f"decode {label}: prefill_fn ({impl}) launched {n}, want "
                  f"{want_launches} flash launches and nothing else")
@@ -2374,11 +2679,15 @@ def online_phase(torch, np, dev, kernels) -> None:
                  f"{k_run['n'][k]} times for {approx} approx steps")
 
 
-def lm_setup(torch, np, dev, arch="internlm2-1.8b", dtype=None):
-    """Phase 9's recipe on `arch` at full width and LM["layers"] layers:
-    (cfg, model, p0, docs, meta, the DeltaGrad config, removed rows, the
-    objective under flash, in the compute `dtype`: None is the model's
-    bf16)."""
+def lm_setup(torch, np, dev, arch="internlm2-1.8b", dtype=None,
+             layers=LM["layers"], steps=LM["steps"], burn_in=LM_DG["burn_in"],
+             window=LM_DG["stream_window"], remat=False):
+    """Phase 9's recipe on `arch` at full width and `layers` layers, T
+    `steps`, j0 `burn_in` and `window` steps a streamed window (phase 9's
+    unless a cut says otherwise): (cfg, model, p0, docs, meta, the
+    DeltaGrad config, removed rows, the objective under flash, in the
+    compute `dtype` (None is the model's bf16), with per-block activation
+    checkpointing if `remat`)."""
     import dataclasses as dc
 
     from repro_torch.configs.registry import get_config
@@ -2387,16 +2696,17 @@ def lm_setup(torch, np, dev, arch="internlm2-1.8b", dtype=None):
     from repro_torch.data.synthetic import token_stream
     from repro_torch.models.registry import build
 
-    cfg = dc.replace(get_config(arch), n_layers=LM["layers"])
+    cfg = dc.replace(get_config(arch), n_layers=layers)
     model = build(cfg)
     p0 = model.init(seed=0, device=dev)
     docs = token_stream(LM["docs"], LM["seq"], cfg.vocab, seed=0)
     meta = HistoryMeta(n=LM["docs"], batch_size=LM["batch"], seed=LM["seed"],
-                       steps=LM["steps"], lr_schedule=((0, LM["lr"]),))
-    dgc = dg.DeltaGradConfig(**LM_DG)
+                       steps=steps, lr_schedule=((0, LM["lr"]),))
+    dgc = dg.DeltaGradConfig(**{**LM_DG, "burn_in": burn_in,
+                                "stream_window": window})
     removed = np.linspace(3, 120, 4).astype(np.int64)
     obj = dg.Objective.from_model(model, loss_chunk=LM["loss_chunk"],
-                                  attn_impl="flash", dtype=dtype)
+                                  attn_impl="flash", dtype=dtype, remat=remat)
     return cfg, model, p0, docs, meta, dgc, removed, obj
 
 
@@ -2504,9 +2814,10 @@ def lm_phase(torch, np, dev, kernels) -> dict:
     w_c, h_c = dg.sgd_train_with_cache(obj, p0, docs, meta, tier="host",
                                        codec="delta_int8", window=LM["window"])
     rec_s = time.perf_counter() - t0
-    print(f"lm delta_int8: train_s={rec_s:.4f} host_bytes={h_c.nbytes()} "
-          f"same model as the f32 recording: {torch.equal(w_c.flat, w_star.flat)}",
-          flush=True)
+    print(f"lm delta_int8: train_s={rec_s:.4f} (rows encoded on the card) "
+          f"host_bytes={h_c.nbytes()} same model as the f32 recording: "
+          f"{torch.equal(w_c.flat, w_star.flat)}", flush=True)
+    codec_on_card(torch, np, w_star.flat, p0.flat, h_c.bounds)
     runs = {}
     for mode in ("kernel", "fetch"):
         torch.cuda.reset_peak_memory_stats()
@@ -2546,6 +2857,33 @@ def lm_phase(torch, np, dev, kernels) -> dict:
     return {"fused_update": n["fused_update"], "multidot": n["multidot"],
             "rank_update": n["rank_update"], "dequant_update": n_k["dequant_update"],
             "dequant_sub": n_k["dequant_sub"]}
+
+
+def codec_on_card(torch, np, w, base, bounds) -> None:
+    """The delta_int8 codec on one LM row, w - base: its encode on the card
+    (what the recording runs) against its encode of the same numpy rows on
+    the host's CPU (held bitwise to the JAX package's codec by
+    tests/test_torch_history.py), codes and per-leaf scales bitwise."""
+    from repro_torch.core.history import DeltaInt8Codec
+
+    codec = DeltaInt8Codec()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = codec.encode_delta_tensor(w, base, bounds)
+    card_s = time.perf_counter() - t0
+    w_h, base_h = w.cpu().numpy(), base.cpu().numpy()
+    t0 = time.perf_counter()
+    host = codec.encode_delta(w_h, base_h, bounds)
+    host_s = time.perf_counter() - t0
+    same = (np.array_equal(card.q, host.q) and card.scale.dtype == host.scale.dtype
+            and np.array_equal(card.scale.view(np.int32), host.scale.view(np.int32)))
+    print(f"lm delta_int8 codec on one row of p={w.numel()} ({len(bounds) - 1} "
+          f"leaves): the card's encode (with the copy of the codes to the host) "
+          f"{card_s:.4f} s, the CPU's {host_s:.4f} s; codes and scales bitwise "
+          f"equal: {same} (codes differing: {int((card.q != host.q).sum())})",
+          flush=True)
+    if not same:
+        fail("lm delta_int8: the card's encode is not bitwise the numpy codec's")
 
 
 def lm_blockwise(torch, np, dg, model, p0, docs, meta, dgc, removed, w_star,
@@ -3271,7 +3609,28 @@ def mla_dg_main(name: str) -> int:
     return opt_in_main(body)
 
 
+def hybrid_dg_main(name: str) -> int:
+    """``--hybrid-dg DTYPE``: phase 17 (d) alone in the compute dtype bf16
+    or f32, without the profile and the kernels' comparison."""
+    def body(torch, np, dev):
+        dtype = {"bf16": None, "f32": torch.float32}[name]
+        hybrid_deltagrad(torch, np, dev, kernel_table(), nvidia_smi(), dtype=dtype,
+                         main_path=False)
+
+    return opt_in_main(body)
+
+
+def hybrid_main() -> int:
+    """``--hybrid``: phase 17 alone."""
+    return opt_in_main(lambda torch, np, dev: hybrid_phase(torch, np, dev,
+                                                           kernel_table()))
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--hybrid"]:
+        sys.exit(hybrid_main())
+    if sys.argv[1:2] == ["--hybrid-dg"] and len(sys.argv) == 3:
+        sys.exit(hybrid_dg_main(sys.argv[2]))
     if sys.argv[1:2] == ["--moe-dg"] and len(sys.argv) == 3:
         sys.exit(moe_dg_main(sys.argv[2]))
     if sys.argv[1:2] == ["--mla-dg"] and len(sys.argv) == 3:

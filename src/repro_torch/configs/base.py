@@ -1,12 +1,12 @@
-"""The model configuration, for the GQA token decoders, the MoE family and
-multi-head latent attention (MLA).
+"""The model configuration, for the GQA token decoders, the MoE family,
+multi-head latent attention (MLA) and the Mamba2 hybrid stack.
 
 The port's copy of the JAX package's ``configs/base.py``: `ModelConfig`,
-`MLAConfig` and `MoEConfig` with the same field names and defaults (tests
-hold them field by field against the reference's entries).  The fields of
-the other families (SSM, xLSTM, enc-dec, frontends) wait for the model
-families that read them; `models.transformer.layout_of` raises for a
-config that needs them.
+`MLAConfig`, `MoEConfig` and `SSMConfig` with the same field names and
+defaults (tests hold them field by field against the reference's
+entries).  The fields of the other families (xLSTM, enc-dec, frontends)
+wait for the model families that read them; `models.transformer.layout_of`
+raises for a config that needs them.
 """
 
 from __future__ import annotations
@@ -41,9 +41,21 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block."""
+
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 128
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm | moe (the token decoders ported) | simple
+    family: str  # dense | vlm | moe | hybrid (the token decoders ported) | simple
     n_layers: int
     d_model: int
     n_heads: int
@@ -59,7 +71,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
-    # repeating block pattern of a hybrid stack; None: n_layers x ("attn",)
+    ssm: Optional[SSMConfig] = None
+    # repeating block pattern of a hybrid stack, e.g. ("mamba2",) * 5 +
+    # ("attn_shared",); None: n_layers x ("attn",)
     layout_unit: Optional[Tuple[str, ...]] = None
     attn_window: int = 0  # sliding window of attention layers; 0 = full
     frontend: str = "tokens"
@@ -73,7 +87,9 @@ class ModelConfig:
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
         defaults: a dense stack, for MLA ranks 32 / 16 and head dims of 8,
-        and for MoE 8 experts, top-2), with `overrides` on top."""
+        for MoE 8 experts, top-2, for an SSM d_state, head_dim and chunk
+        16, and a hybrid stack cut to one unit), with `overrides` on
+        top."""
         small = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -93,5 +109,11 @@ class ModelConfig:
                 self.moe, num_experts=8, top_k=2, d_expert=32,
                 num_shared=min(self.moe.num_shared, 2), d_shared=64,
             )
+        if self.ssm:
+            small["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=16, chunk=16
+            )
+        if self.layout_unit:
+            small["n_layers"] = len(self.layout_unit)  # one repeating unit
         small.update(overrides)
         return dataclasses.replace(self, **small)

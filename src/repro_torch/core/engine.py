@@ -10,8 +10,9 @@ Mapping to Wu et al., ICML 2020 (and to the JAX package's `core.engine`):
   RECORD    `run_training`: Algorithm 1's original GD/SGD run, writing
             (w_t, g_t) into two preallocated (T, p) device buffers, the
             `TrainingHistory`; on the host and disk tiers one window of
-            steps at a time, each window copied to the host and encoded
-            there, so the device never holds more than a window.
+            steps at a time, each row encoded on the device and its codes
+            copied to the host, so the device never holds more than a
+            window.
   BASEL     `run_baseline`: exact retraining on the changed data.
   REPLAY    `run_replay`: explicit steps (t <= j0, every T0, and whenever
             the L-BFGS buffer is empty) are host-driven because they admit
@@ -74,7 +75,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.history import HistoryMeta, TrainingHistory, _host_copy
+from repro_torch.core.history import HistoryMeta, TrainingHistory
 from repro_torch.core.lbfgs import LbfgsBuffer, ring_valid_mask
 from repro_torch.core.store import (EncodedWindow, HistoryStore,
                                    SegmentStreamer, auto_window, decode_row)
@@ -325,8 +326,8 @@ def run_training(objective, params0: FlatParams, ds: Dataset,
             new, vel = _step(params.flat, vel, g, meta.lr_at(t), meta.momentum)
             params = params.with_flat(new)
         if tier != "stacked":  # the window goes to the host, through the codec
-            for i in range(b - a):  # W is reused by the next window
-                history.append(_host_copy(W[i]), _host_copy(G[i]))
+            for i in range(b - a):  # encoded on the device; W is reused
+                history.append(W[i], G[i])
     if tier == "stacked":
         history.set_stacked(W, G, final_params=params)
     else:

@@ -31,8 +31,11 @@ Every stored row is an `Encoded` pair ``(q, scale)``: q (p,) f32, bf16 (as
 its int16 bit pattern: numpy has no bfloat16) or int8, scale (n_leaves,)
 f32 or None.  Decoding is `kernels.dequant_update.ref.dequant_ref`, the
 one expression ``q.float() * scale (+ base)`` that every read path uses.
-The codecs are the port's numpy copy of the JAX package's, bitwise: the
-int8 encode is its expression verbatim, applied leaf by leaf.
+The codecs are the port's copy of the JAX package's, bitwise: the int8
+encode is its expression, applied leaf by leaf.  Each codec encodes a
+torch row on the row's own device (``encode_tensor``; a delta codec's
+residual too), so a recording on the card copies only the codes to the
+host; a numpy row goes through the same code on the CPU.
 """
 
 from __future__ import annotations
@@ -107,13 +110,19 @@ class F32Codec:
     def encode(self, row: np.ndarray, bounds) -> Encoded:
         return Encoded(np.asarray(row, dtype=np.float32))  # no copy: rows come fresh
 
+    def encode_tensor(self, row: torch.Tensor, bounds) -> Encoded:
+        return Encoded(_host_copy(row))
+
 
 class BF16Codec:
     name = "bf16"
 
     def encode(self, row: np.ndarray, bounds) -> Encoded:
         x = torch.from_numpy(np.ascontiguousarray(row, dtype=np.float32))
-        return Encoded(x.to(torch.bfloat16).view(torch.int16).numpy())
+        return self.encode_tensor(x, bounds)
+
+    def encode_tensor(self, row: torch.Tensor, bounds) -> Encoded:
+        return Encoded(row.to(torch.bfloat16).view(torch.int16).cpu().numpy())
 
 
 class Int8Codec:
@@ -121,18 +130,30 @@ class Int8Codec:
 
     name = "int8"
 
-    def encode(self, row: np.ndarray, bounds) -> Encoded:
-        row = np.asarray(row, dtype=np.float32)
-        q = np.empty(row.shape, np.int8)
-        scales = np.empty(len(bounds) - 1, np.float32)
+    def encode_tensor(self, row: torch.Tensor, bounds) -> Encoded:
+        """The JAX package's expression on each leaf, on the row's device:
+        the scale is max |x| / 127 in f32 (1 for an empty or all-zero
+        leaf), and q = clip(round_half_even(x / scale), -127, 127).  Both
+        divisions take a device tensor as divisor: on the card a CPU scalar
+        divisor would turn the division into a product by its reciprocal,
+        which rounds differently."""
+        row = row.detach().float()
+        q = torch.empty(row.shape, dtype=torch.int8, device=row.device)
+        scales = torch.ones(len(bounds) - 1, device=row.device)
+        c127 = torch.tensor(127.0, device=row.device)
         for i, (a, b) in enumerate(zip(bounds, bounds[1:])):
-            # the JAX package's Int8Codec.encode, on one leaf
+            if b == a:
+                continue
             x = row[a:b]
-            scale = np.max(np.abs(x)) / 127.0 if x.size else 1.0
-            scale = scale if scale > 0 else 1.0
-            q[a:b] = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
-            scales[i] = np.float32(scale)
-        return Encoded(q, scales)
+            scale = x.abs().amax() / c127
+            scale = torch.where(scale > 0, scale, scales[i])
+            q[a:b] = torch.round(x / scale).clamp_(-127, 127)
+            scales[i] = scale
+        return Encoded(q.cpu().numpy(), scales.cpu().numpy())
+
+    def encode(self, row: np.ndarray, bounds) -> Encoded:
+        return self.encode_tensor(
+            torch.from_numpy(np.ascontiguousarray(row, dtype=np.float32)), bounds)
 
 
 class DeltaCodec:
@@ -157,6 +178,11 @@ class DeltaCodec:
                      bounds) -> Encoded:
         return self.inner.encode(np.asarray(row, dtype=np.float32) - base,
                                  bounds)
+
+    def encode_delta_tensor(self, row: torch.Tensor, base: torch.Tensor,
+                            bounds) -> Encoded:
+        """`encode_delta` on the row's device (the base on it too)."""
+        return self.inner.encode_tensor(row.detach().float() - base, bounds)
 
 
 class DeltaInt8Codec(DeltaCodec):
@@ -240,6 +266,8 @@ class TrainingHistory:
         self._enc: List[Tuple[Encoded, Encoded]] = []
         # delta codecs: key window -> (base_w, base_g) f32 keyframes
         self._bases: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        # the latest key window's bases on the recording's device
+        self._dev_base: Optional[Tuple[int, torch.Tensor, torch.Tensor]] = None
         # disk tier: one .npz per spill_window steps (0: the stream window
         # `core.store.auto_window` would pick)
         if tier == "disk":
@@ -316,21 +344,51 @@ class TrainingHistory:
                                  np.array(g, dtype=np.float32))
         return self._bases[kwid]
 
-    def append(self, w: np.ndarray, g: np.ndarray) -> None:
-        """Encode and store entry t = len(self): host rows (p,) of w_t, g_t
-        that nothing else writes (the f32 codec keeps them as they are)."""
+    def _device_base(self, t: int, w: torch.Tensor,
+                     g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Entry t's keyframes on the rows' device: the latest key
+        window's are kept there (taken from the rows themselves when they
+        open a key window), so a recording copies each base once."""
+        kwid = t // self.codec.key_interval
+        if kwid not in self._bases:
+            self._bases[kwid] = (_host_copy(w), _host_copy(g))
+            self._dev_base = (kwid, w.detach().float().clone(),
+                              g.detach().float().clone())
+        elif (self._dev_base is None or self._dev_base[0] != kwid
+              or self._dev_base[1].device != w.device):
+            self._dev_base = (kwid,) + tuple(
+                torch.from_numpy(b).to(w.device) for b in self._bases[kwid])
+        return self._dev_base[1], self._dev_base[2]
+
+    def _encode_pair(self, t: int, w, g) -> Tuple[Encoded, Encoded]:
+        """Rows w_t, g_t through the codec: torch rows on their device
+        (only the codes are copied to the host), numpy rows on the host (a
+        fresh row, which the f32 codec keeps)."""
+        bounds = self.bounds
+        if isinstance(w, torch.Tensor):
+            if self.is_delta:
+                bw, bg = self._device_base(t, w, g)
+                return (self.codec.encode_delta_tensor(w, bw, bounds),
+                        self.codec.encode_delta_tensor(g, bg, bounds))
+            return (self.codec.encode_tensor(w, bounds),
+                    self.codec.encode_tensor(g, bounds))
+        if self.is_delta:
+            bw, bg = self._base_for(t, w, g)
+            return (self.codec.encode_delta(w, bw, bounds),
+                    self.codec.encode_delta(g, bg, bounds))
+        return self.codec.encode(w, bounds), self.codec.encode(g, bounds)
+
+    def append(self, w, g) -> None:
+        """Encode and store entry t = len(self): rows (p,) of w_t, g_t, as
+        torch tensors (encoded on their device; the caller may reuse them
+        afterwards) or as host rows that nothing else writes (the f32
+        codec keeps them as they are)."""
         if self.tier == "stacked":
             raise ValueError("append on a stacked history: the recording "
                              "loop hands it whole to set_stacked")
         if not self.shapes:
             raise ValueError("set_layout before the first append")
-        t, bounds = self._n, self.bounds
-        if self.is_delta:
-            bw, bg = self._base_for(t, w, g)
-            pair = (self.codec.encode_delta(w, bw, bounds),
-                    self.codec.encode_delta(g, bg, bounds))
-        else:
-            pair = (self.codec.encode(w, bounds), self.codec.encode(g, bounds))
+        pair = self._encode_pair(self._n, w, g)
         self._n += 1
         if self.tier == "host":
             self._enc.append(pair)
@@ -340,6 +398,7 @@ class TrainingHistory:
 
     def finalize(self, final_params: FlatParams) -> None:
         self.final_params = final_params
+        self._dev_base = None
         if self.tier == "disk":
             self._flush_spill(everything=True)
 
@@ -449,14 +508,7 @@ class TrainingHistory:
                 return _host_copy(x)
             return np.array(x, dtype=np.float32)
 
-        w, g = host(w), host(g)
-        bounds = self.bounds
-        if self.is_delta:
-            bw, bg = self._base_for(t)
-            pair = (self.codec.encode_delta(w, bw, bounds),
-                    self.codec.encode_delta(g, bg, bounds))
-        else:
-            pair = (self.codec.encode(w, bounds), self.codec.encode(g, bounds))
+        pair = self._encode_pair(t, host(w), host(g))
         if self.tier == "host":
             self._enc[t] = pair
             return

@@ -1,10 +1,11 @@
 """The model facade: init, loss, decode and objective of a configuration.
 
 The port's copy of the JAX package's ``models/registry.py`` for the GQA
-token decoders and the MoE family, and the bridge that carries the JAX
-LM's weights across:
-`params_from_jax` takes the reference's nested parameter tree (as numpy)
-and gives the port's `FlatParams`, in the same flat order.
+token decoders, the MoE family, MLA and the Mamba2 hybrid (Zamba2), and
+the bridge that carries the JAX LM's weights across: `params_from_jax`
+takes the reference's nested parameter tree (as numpy; a hybrid's
+``shared`` block and every unit position ``u{pos}`` included) and gives
+the port's `FlatParams`, in the same flat order.
 """
 
 from __future__ import annotations
@@ -52,8 +53,9 @@ class Model:
         return transformer.prefill(params, batch, self.cfg, **kw)
 
     def cache_init(self, batch: int, seq: int, device=None):
-        """Empty KV caches (`transformer.init_caches`) on `device` (None:
-        the card; raises without one)."""
+        """Empty decode caches (`transformer.init_caches`: KV, latent or
+        Mamba2 states, per unit position) on `device` (None: the card;
+        raises without one)."""
         from repro_torch.core.engine import resolve_device
         return transformer.init_caches(self.cfg, batch, seq,
                                        device=resolve_device(device))

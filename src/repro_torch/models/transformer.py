@@ -1,26 +1,37 @@
-"""Decoder-only LM: a stack of attention blocks over stacked layer weights.
+"""Decoder-only LM: a stack of blocks over stacked layer weights.
 
 The port's copy of the JAX package's ``models/transformer.py`` for the GQA
 token decoders (InternLM2 and its kind), the MoE family (Qwen-MoE,
-Moonlight) and multi-head latent attention (MiniCPM3).  Parameters are one
-`FlatParams` keyed by the reference's key paths (``embed``,
-``final_norm/scale``, ``lm_head``, ``u0/{ln1,ln2}/scale``,
-``u0/mixer/{wk,wo,wq,wv}`` for GQA or ``u0/mixer/{kv_norm/scale,
-q_norm/scale,w_dkv,w_dq,w_uk,w_uq,w_uv,wo}`` for MLA, and
-``u0/mlp/{w_down,w_gate,w_up}`` for a dense FFN or
+Moonlight), multi-head latent attention (MiniCPM3) and the Mamba2 hybrid
+(Zamba2).  A model is ``n_units`` repeats of a unit of blocks
+(`layout_of`): one attention block for the dense stacks, five ``mamba2``
+blocks and one ``attn_shared`` block for Zamba2.  Parameters are one
+`FlatParams` keyed by the reference's key paths: ``embed``,
+``final_norm/scale``, ``lm_head``; for each unit position ``u{pos}`` its
+blocks' weights stacked over the units on a leading axis, an attention
+block's as ``u0/{ln1,ln2}/scale``, ``u0/mixer/{wk,wo,wq,wv}`` for GQA or
+``u0/mixer/{kv_norm/scale, q_norm/scale,w_dkv,w_dq,w_uk,w_uq,w_uv,wo}``
+for MLA, and ``u0/mlp/{w_down,w_gate,w_up}`` for a dense FFN or
 ``u0/mlp/{router,shared/{w_down,w_gate,w_up},shared_gate,w_down,w_gate,
-w_up}`` for an MoE one), each layer weight stacked over the layers on a
-leading axis, so the flat vector is the reference's ``ravel_pytree`` of
-its parameter tree.  The reference scans over the stacked axis; the port
-loops over it.  ``remat`` maps to ``torch.utils.checkpoint`` per layer.
+w_up}`` for an MoE one, a Mamba2 block's as ``u0/ln1/scale`` and
+``u0/mixer/{a_log,conv_b,conv_w,d_skip,dt_bias,out_norm/scale,w_in,
+w_out}`` (no FFN); and an ``attn_shared`` position's one set of attention
+block weights under ``shared/`` (no stack), used by every unit.  The flat
+vector is the reference's ``ravel_pytree`` of its parameter tree.  The
+reference scans over the units; the port loops over them, and inside each
+unit over its positions.  ``remat`` maps to ``torch.utils.checkpoint`` per
+block.
 
 Forward flavours, as in the reference:
 
   * `lm_loss` (and its per-row form `lm_loss_rows`): train, full
     sequence, chunked cross-entropy, plus the MoE router's aux term;
   * `prefill`: full sequence, forward only, the last position's logits;
-  * `decode_step`: one token against the KV caches of `init_caches` (an
-    MLA block's is its latent cache, `models.mla`).
+  * `decode_step`: one token against the caches of `init_caches`, one per
+    unit position stacked over the units (an attention block's KV cache,
+    an MLA block's latent cache (`models.mla`), a Mamba2 block's conv and
+    SSM states (`models.mamba2`), and for ``attn_shared`` a KV cache per
+    occurrence, ``min(seq, attn_window)`` slots each).
 
 An MoE FFN routes each token group under its own capacity
 (`models.moe`): the batch's tokens in `lm_loss` and `prefill`, each row's
@@ -43,6 +54,9 @@ from repro_torch.models.attention_config import (attention_impl,
 from repro_torch.models.layers import (gqa_apply, gqa_cache_init, gqa_decode,
                                        gqa_init, mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.models.mamba2 import (mamba2_apply, mamba2_cache_init,
+                                       mamba2_decode, mamba2_init,
+                                       mamba2_param_shapes)
 from repro_torch.models.mla import (mla_apply, mla_cache_init, mla_decode,
                                     mla_init)
 from repro_torch.models.moe import moe_apply, moe_init
@@ -51,17 +65,18 @@ from repro_torch.utils.tree import FlatParams, flatten_nested, nested
 
 # what waits for which slice: ROADMAP.md queue 1 item 9, in order
 _NOT_PORTED = {
-    "mamba2": "Mamba2 and the hybrid stacks (item 9c)",
     "xlstm": "xLSTM (item 9d)",
     "encdec": "the encoder-decoder family and its frame frontend (item 9e)",
 }
+_BLOCKS = {"attn", "attn_shared", "mamba2"}  # the block kinds ported
 
 
 def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
-    """(unit, n_units) of a token decoder whose unit is one attention block
-    (GQA or MLA), whatever its family label (the reference's `layout_of`
-    looks only at the unit), with a dense or an MoE FFN; raises for every
-    other model."""
+    """(unit, n_units) of a token decoder whose unit is made of attention
+    blocks (GQA or MLA; ``attn_shared`` for one set of weights shared by
+    every unit) and Mamba2 blocks, whatever its family label (the
+    reference's `layout_of` looks only at the unit), with a dense or an
+    MoE FFN; raises for every other model."""
     unit = tuple(cfg.layout_unit) if cfg.layout_unit else ("attn",)
     if cfg.family == "audio" or cfg.frontend != "tokens":
         missing = "encdec"
@@ -72,12 +87,16 @@ def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
         raise ValueError(f"{cfg.name}: attention {cfg.attention!r} with mla "
                          f"{cfg.mla!r}; an MLA mixer takes attention='mla' "
                          "and its MLAConfig")
-    elif {"mamba2", "attn_shared"} & set(unit):
-        missing = "mamba2"
+    elif "mamba2" in unit and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: unit {unit} with ssm None; a mamba2 "
+                         "block takes its SSMConfig")
     elif {"mlstm", "slstm"} & set(unit):
         missing = "xlstm"
-    elif unit == ("attn",) and cfg.attention in ("gqa", "mla"):
-        return unit, cfg.n_layers
+    elif set(unit) <= _BLOCKS and cfg.attention in ("gqa", "mla"):
+        if cfg.n_layers % len(unit):
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
+                             f"whole units of {unit}")
+        return unit, cfg.n_layers // len(unit)
     else:
         raise NotImplementedError(
             f"{cfg.name}: unit {unit}, attention {cfg.attention!r} is not a "
@@ -88,13 +107,23 @@ def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
         "item 9")
 
 
+def _stacked(unit) -> Tuple[int, ...]:
+    """The unit positions whose blocks are stacked over the units (all but
+    the shared attention)."""
+    return tuple(pos for pos, kind in enumerate(unit) if kind != "attn_shared")
+
+
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
 
 
-def _block_init(generator: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+def _block_init(kind: str, generator: torch.Generator,
+                cfg: ModelConfig) -> Dict[str, Any]:
     dev = generator.device
+    if kind == "mamba2":
+        return {"ln1": rmsnorm_init(cfg.d_model, dev),
+                "mixer": mamba2_init(generator, cfg.d_model, cfg.ssm)}
     p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, dev),
                          "ln2": rmsnorm_init(cfg.d_model, dev),
                          "mixer": (mla_init(generator, cfg.d_model, cfg.n_heads,
@@ -116,67 +145,86 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> FlatParams:
     N(0, 0.02^2), dense weights N(0, 1/d_in), norm scales 1.  The numbers
     differ from the JAX package's ``init_params`` (torch's generator is
     not jax.random); tests carry weights across with
-    `models.registry.params_from_jax`."""
-    _, n_units = layout_of(cfg)
+    `models.registry.params_from_jax`.
+
+    The draws go in the reference's order of keys: the embedding, the
+    head, each stacked unit position's blocks unit by unit, then the
+    shared block.  Each leaf lands in its slice of one flat f32 buffer:
+    the embedding and the head are drawn in place, and each block is
+    drawn whole and copied in, so the model is held once, plus a block."""
+    unit, n_units = layout_of(cfg)
     dev = generator.device
-    params: Dict[str, Any] = {
-        "embed": torch.randn(cfg.vocab, cfg.d_model, generator=generator,
-                             device=dev) * 0.02,
-        "final_norm": rmsnorm_init(cfg.d_model, dev),
-    }
+    shapes = param_shapes(cfg)
+    params = FlatParams(torch.empty(sum(math.prod(s) for s in shapes.values()),
+                                    device=dev), shapes)
+    params["embed"].normal_(generator=generator).mul_(0.02)
+    params["final_norm/scale"].fill_(1.0)
     if not cfg.tie_embeddings:
-        params["lm_head"] = torch.randn(
-            cfg.d_model, cfg.vocab, generator=generator,
-            device=dev) / math.sqrt(cfg.d_model)
-    layers = [flatten_nested(_block_init(generator, cfg)) for _ in range(n_units)]
-    params["u0"] = nested({k: torch.stack([x[k] for x in layers])
-                           for k in layers[0]})
-    return FlatParams.from_tensors(flatten_nested(params), device=dev)
+        params["lm_head"].normal_(generator=generator).div_(math.sqrt(cfg.d_model))
+    for pos in _stacked(unit):
+        for u in range(n_units):
+            for k, v in flatten_nested(_block_init(unit[pos], generator, cfg)).items():
+                params[f"u{pos}/{k}"][u].copy_(v)
+    if "attn_shared" in unit:
+        for k, v in flatten_nested(_block_init("attn_shared", generator, cfg)).items():
+            params[f"shared/{k}"].copy_(v)
+    return params
+
+
+def _block_shapes(kind: str, cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """One block's leaf shapes, by key path inside the block."""
+    d, hd = cfg.d_model, cfg.head_dim
+    if kind == "mamba2":
+        return {"ln1/scale": (d,), **{f"mixer/{k}": v for k, v in
+                                      mamba2_param_shapes(d, cfg.ssm).items()}}
+    shapes = {"ln1/scale": (d,), "ln2/scale": (d,)}
+    if cfg.mla:
+        m, H = cfg.mla, cfg.n_heads
+        shapes.update({
+            "mixer/w_dq": (d, m.q_lora_rank),
+            "mixer/q_norm/scale": (m.q_lora_rank,),
+            "mixer/w_uq": (m.q_lora_rank,
+                           H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+            "mixer/w_dkv": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "mixer/kv_norm/scale": (m.kv_lora_rank,),
+            "mixer/w_uk": (m.kv_lora_rank, H * m.qk_nope_head_dim),
+            "mixer/w_uv": (m.kv_lora_rank, H * m.v_head_dim),
+            "mixer/wo": (H * m.v_head_dim, d)})
+    else:
+        shapes.update({"mixer/wq": (d, cfg.n_heads * hd),
+                       "mixer/wk": (d, cfg.n_kv_heads * hd),
+                       "mixer/wv": (d, cfg.n_kv_heads * hd),
+                       "mixer/wo": (cfg.n_heads * hd, d)})
+        if cfg.qk_norm:
+            shapes["mixer/q_norm/scale"] = (hd,)
+            shapes["mixer/k_norm/scale"] = (hd,)
+    if cfg.moe:
+        E, f, fs = cfg.moe.num_experts, cfg.moe.d_expert, cfg.moe.d_shared
+        shapes.update({"mlp/router": (d, E), "mlp/w_gate": (E, d, f),
+                       "mlp/w_up": (E, d, f), "mlp/w_down": (E, f, d)})
+        if cfg.moe.num_shared > 0:
+            shapes.update({"mlp/shared/w_gate": (d, fs), "mlp/shared/w_up": (d, fs),
+                           "mlp/shared/w_down": (fs, d), "mlp/shared_gate": (d, 1)})
+    else:
+        shapes["mlp/w_up"] = (d, cfg.d_ff)
+        shapes["mlp/w_down"] = (cfg.d_ff, d)
+        if cfg.mlp == "swiglu":
+            shapes["mlp/w_gate"] = (d, cfg.d_ff)
+    return shapes
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Every leaf's shape, by key path, without allocating."""
-    _, L = layout_of(cfg)
-    d, hd = cfg.d_model, cfg.head_dim
-    shapes = {"embed": (cfg.vocab, d), "final_norm/scale": (d,),
-              "u0/ln1/scale": (L, d), "u0/ln2/scale": (L, d)}
-    if cfg.mla:
-        m, H = cfg.mla, cfg.n_heads
-        shapes.update({
-            "u0/mixer/w_dq": (L, d, m.q_lora_rank),
-            "u0/mixer/q_norm/scale": (L, m.q_lora_rank),
-            "u0/mixer/w_uq": (L, m.q_lora_rank,
-                              H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
-            "u0/mixer/w_dkv": (L, d, m.kv_lora_rank + m.qk_rope_head_dim),
-            "u0/mixer/kv_norm/scale": (L, m.kv_lora_rank),
-            "u0/mixer/w_uk": (L, m.kv_lora_rank, H * m.qk_nope_head_dim),
-            "u0/mixer/w_uv": (L, m.kv_lora_rank, H * m.v_head_dim),
-            "u0/mixer/wo": (L, H * m.v_head_dim, d)})
-    else:
-        shapes.update({"u0/mixer/wq": (L, d, cfg.n_heads * hd),
-                       "u0/mixer/wk": (L, d, cfg.n_kv_heads * hd),
-                       "u0/mixer/wv": (L, d, cfg.n_kv_heads * hd),
-                       "u0/mixer/wo": (L, cfg.n_heads * hd, d)})
-        if cfg.qk_norm:
-            shapes["u0/mixer/q_norm/scale"] = (L, hd)
-            shapes["u0/mixer/k_norm/scale"] = (L, hd)
-    if cfg.moe:
-        E, f, fs = cfg.moe.num_experts, cfg.moe.d_expert, cfg.moe.d_shared
-        shapes.update({"u0/mlp/router": (L, d, E),
-                       "u0/mlp/w_gate": (L, E, d, f), "u0/mlp/w_up": (L, E, d, f),
-                       "u0/mlp/w_down": (L, E, f, d)})
-        if cfg.moe.num_shared > 0:
-            shapes.update({"u0/mlp/shared/w_gate": (L, d, fs),
-                           "u0/mlp/shared/w_up": (L, d, fs),
-                           "u0/mlp/shared/w_down": (L, fs, d),
-                           "u0/mlp/shared_gate": (L, d, 1)})
-    else:
-        shapes["u0/mlp/w_up"] = (L, d, cfg.d_ff)
-        shapes["u0/mlp/w_down"] = (L, cfg.d_ff, d)
-        if cfg.mlp == "swiglu":
-            shapes["u0/mlp/w_gate"] = (L, d, cfg.d_ff)
+    unit, n_units = layout_of(cfg)
+    shapes = {"embed": (cfg.vocab, cfg.d_model), "final_norm/scale": (cfg.d_model,)}
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, cfg.vocab)
+        shapes["lm_head"] = (cfg.d_model, cfg.vocab)
+    for pos in _stacked(unit):
+        shapes.update({f"u{pos}/{k}": (n_units,) + v
+                       for k, v in _block_shapes(unit[pos], cfg).items()})
+    if "attn_shared" in unit:
+        shapes.update({f"shared/{k}": v
+                       for k, v in _block_shapes("attn_shared", cfg).items()})
     return shapes
 
 
@@ -250,8 +298,11 @@ def _ffn(p, h: torch.Tensor, cfg: ModelConfig, per_row: bool):
     return out.reshape(B, S, d), aux
 
 
-def _block_apply(p, x: torch.Tensor, cfg: ModelConfig, per_row: bool):
+def _block_apply(kind: str, p, x: torch.Tensor, cfg: ModelConfig,
+                 per_row: bool):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "mamba2":
+        return x + mamba2_apply(p["mixer"], h, cfg.d_model, cfg.ssm), None
     if cfg.mla:
         h = mla_apply(p["mixer"], h, n_heads=cfg.n_heads, cfg=cfg.mla,
                       rope_theta=cfg.rope_theta, window=cfg.attn_window)
@@ -265,31 +316,38 @@ def _block_apply(p, x: torch.Tensor, cfg: ModelConfig, per_row: bool):
     return x + out, aux
 
 
+def _unit_blocks(params, unit, u: int):
+    """Unit u's blocks in order: (kind, weights), the shared attention's
+    one set of weights at its position."""
+    return [(kind, params["shared"] if kind == "attn_shared"
+             else _slice(params[f"u{pos}"], u)) for pos, kind in enumerate(unit)]
+
+
 def forward_hidden(params, x: torch.Tensor, cfg: ModelConfig, *,
                    remat: bool = False, per_row: bool = False):
-    """Run the block stack on x (B, S, d), the embedded input; returns
-    (the final-normed hidden states, aux): aux is the MoE router's aux
-    loss summed over the layers, per token group ((B,) f32 when
-    `per_row`, else (1,)), and None for a dense FFN.  ``params`` is the
-    nested (cast) dict."""
-    _, n_units = layout_of(cfg)
+    """Run the block stack on x (B, S, d), the embedded input, unit by unit
+    and inside each unit position by position; returns (the final-normed
+    hidden states, aux): aux is the MoE router's aux loss summed over the
+    layers, per token group ((B,) f32 when `per_row`, else (1,)), and None
+    for a dense FFN.  ``params`` is the nested (cast) dict."""
+    unit, n_units = layout_of(cfg)
     impl = attention_impl()
 
-    def block(p, y):
+    def block(kind, p, y):
         # the recompute runs in the backward pass, after the caller's
         # attention switch is gone: pin the one the forward pass used
         with use_attention_impl(impl):
-            return _block_apply(p, y, cfg, per_row)
+            return _block_apply(kind, p, y, cfg, per_row)
 
     aux = None
     for u in range(n_units):
-        p = _slice(params["u0"], u)
-        if remat:
-            x, a = checkpoint(block, p, x, use_reentrant=False)
-        else:
-            x, a = _block_apply(p, x, cfg, per_row)
-        if a is not None:
-            aux = a if aux is None else aux + a
+        for kind, p in _unit_blocks(params, unit, u):
+            if remat:
+                x, a = checkpoint(block, kind, p, x, use_reentrant=False)
+            else:
+                x, a = _block_apply(kind, p, x, cfg, per_row)
+            if a is not None:
+                aux = a if aux is None else aux + a
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -365,8 +423,10 @@ def lm_loss(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
 # --------------------------------------------------------------------------
 
 
-def _block_cache_init(cfg: ModelConfig, batch: int, seq: int,
+def _block_cache_init(kind: str, cfg: ModelConfig, batch: int, seq: int,
                       device=None) -> Dict[str, torch.Tensor]:
+    if kind == "mamba2":  # f32 states, the reference's default
+        return mamba2_cache_init(batch, cfg.d_model, cfg.ssm, device=device)
     if cfg.mla:  # the latent cache: bf16, as the reference's default
         return mla_cache_init(batch, seq, cfg.mla, device=device)
     win = cfg.attn_window
@@ -375,10 +435,13 @@ def _block_cache_init(cfg: ModelConfig, batch: int, seq: int,
                           device=device)
 
 
-def _block_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
-    """One layer on the step's x (B, 1, d); an MoE FFN routes the step's B
+def _block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ModelConfig):
+    """One block on the step's x (B, 1, d); an MoE FFN routes the step's B
     tokens as one group, as the reference's ``moe_apply`` on (B, 1, d)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "mamba2":
+        out, cache = mamba2_decode(p["mixer"], h, cache, cfg.d_model, cfg.ssm)
+        return x + out, cache
     if cfg.mla:
         h, cache = mla_decode(p["mixer"], h, cache, n_heads=cfg.n_heads,
                               cfg=cfg.mla, rope_theta=cfg.rope_theta)
@@ -397,12 +460,15 @@ def init_caches(cfg: ModelConfig, batch: int, seq: int,
                 device=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """Empty caches for every block of the unit, stacked over the units on
     a leading axis: ``{"u0": {k, v: (n_units, B, S, Hkv, D) bf16, len:
-    (n_units,) int32}}``, or for MLA ``{"u0": {c_kv: (n_units, B, S,
-    kv_lora), k_rope: (n_units, B, S, rope) bf16, len}}``."""
+    (n_units,) int32}}``, for MLA ``{"u0": {c_kv: (n_units, B, S,
+    kv_lora), k_rope: (n_units, B, S, rope) bf16, len}}``, for a Mamba2
+    position ``{conv: (n_units, B, d_conv - 1, conv_dim), ssm: (n_units,
+    B, H, head_dim, d_state)}`` f32, and for the shared attention one KV
+    cache per occurrence, of ``min(seq, attn_window)`` slots."""
     unit, n_units = layout_of(cfg)
     caches = {}
-    for pos, _ in enumerate(unit):
-        one = _block_cache_init(cfg, batch, seq, device)
+    for pos, kind in enumerate(unit):
+        one = _block_cache_init(kind, cfg, batch, seq, device)
         caches[f"u{pos}"] = {k: v.expand((n_units,) + v.shape).clone()
                              for k, v in one.items()}
     return caches
@@ -412,23 +478,28 @@ def init_caches(cfg: ModelConfig, batch: int, seq: int,
 def decode_step(params: Mapping[str, Any], batch, caches, cfg: ModelConfig,
                 *, dtype: torch.dtype = torch.bfloat16):
     """One-token decode: batch ``{"tokens": (B, 1)}``; returns (logits (B,
-    vocab) f32, new caches).  ``params`` is flat or nested; float32 leaves
-    are cast to `dtype` on every call, as in the reference, and leaves
-    already in `dtype` are used as they are (so a caller may cast once).
-    Each layer's cache leaves but ``len`` are written in place
-    (`layers.gqa_decode`, `mla.mla_decode`)."""
-    _, n_units = layout_of(cfg)
+    vocab) f32, new caches, every unit position's).  ``params`` is flat or
+    nested; float32 leaves are cast to `dtype` on every call, as in the
+    reference, and leaves already in `dtype` are used as they are (so a
+    caller may cast once).  Each block's cache leaves but ``len`` are
+    written in place (`layers.gqa_decode`, `mla.mla_decode`,
+    `mamba2.mamba2_decode`)."""
+    unit, n_units = layout_of(cfg)
     p = cast_params(nested(params), dtype)
     x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
-    c = caches["u0"]
-    lens = []
+    lens = {pos: [] for pos in range(len(unit)) if "len" in caches[f"u{pos}"]}
     for u in range(n_units):
-        x, new = _block_decode(_slice(p["u0"], u), x,
-                               {k: v[u] for k, v in c.items()}, cfg)
-        lens.append(new["len"])
+        for pos, (kind, blk) in enumerate(_unit_blocks(p, unit, u)):
+            c = caches[f"u{pos}"]
+            x, new = _block_decode(kind, blk, x, {k: v[u] for k, v in c.items()},
+                                   cfg)
+            if pos in lens:
+                lens[pos].append(new["len"])
     h = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     logits = _lm_head(p, h[:, 0], cfg)
-    return logits, {"u0": {**c, "len": torch.stack(lens)}}
+    return logits, {f"u{pos}": {**caches[f"u{pos}"], **(
+        {"len": torch.stack(lens[pos])} if pos in lens else {})}
+        for pos in range(len(unit))}
 
 
 @torch.no_grad()
@@ -437,8 +508,10 @@ def prefill(params: Mapping[str, Any], batch, cfg: ModelConfig, *,
     """Inference prefill: the full-sequence forward, forward only, giving
     the last position's logits (B, vocab) f32.  A GQA block's attention
     goes through `layers.full_attention`, so the flash kernel takes it
-    under ``use_attention_impl("flash")``; an MLA block's is blockwise
-    whatever the switch, as in the reference."""
+    under ``use_attention_impl("flash")`` unless the block attends in a
+    window (Zamba2's shared block); an MLA block's is blockwise whatever
+    the switch, as in the reference.  A Mamba2 block runs the chunked
+    SSD."""
     p = cast_params(nested(params), dtype)
     x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
     h, _ = forward_hidden(p, x, cfg, remat=False)

@@ -39,6 +39,7 @@ import pytest
 import torch
 
 from repro.configs.base import MLAConfig as JMLAConfig
+from repro.configs.base import SSMConfig as JSSMConfig
 from repro.configs.registry import get_config as j_get_config
 from repro.launch import serve as j_serve
 from repro.models import layers as jl
@@ -46,7 +47,7 @@ from repro.models import transformer as jt
 from repro.models.registry import build as j_build
 from repro.models.registry import count_params as j_count_params
 
-from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, SSMConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import layers as tl
@@ -120,25 +121,26 @@ def test_full_size_parameter_counts_match(arch):
     assert ("u0/mlp/w_gate" in shapes) == (cfg.mlp == "swiglu")
 
 
-@pytest.mark.parametrize("change,ported", [  # the letters of item 9 ported since
+@pytest.mark.parametrize("change,ported,layout", [  # the letters of item 9 ported since
     pytest.param(dict(attention="mla"), (dict(mla=MLAConfig()), dict(mla=JMLAConfig())),
-                 id="change1-9b"),
+                 (("attn",), 6), id="change1-9b"),
+    pytest.param(dict(family="hybrid", layout_unit=("mamba2",) * 5 + ("attn_shared",)),
+                 (dict(ssm=SSMConfig()), dict(ssm=JSSMConfig())),
+                 (("mamba2",) * 5 + ("attn_shared",), 1), id="change2-9c"),
 ])
-def test_layout_takes_the_ported_families(change, ported):
+def test_layout_takes_the_ported_families(change, ported, layout):
     """A family once refused by `layout_of` is taken now, and agrees with
     the reference: the layout, the built model's config, the count."""
     cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=6, **change,
                               **ported[0])
     ref = dataclasses.replace(j_get_config("internlm2-1.8b"), n_layers=6, **change,
                               **ported[1])
-    assert tt.layout_of(cfg) == jt.layout_of(ref) == (("attn",), 6)
+    assert tt.layout_of(cfg) == jt.layout_of(ref) == layout
     assert build(cfg).cfg == cfg
     assert count_params(cfg) == j_count_params(ref)
 
 
 @pytest.mark.parametrize("change,item", [  # ids as before the MoE family (9a)
-    pytest.param(dict(family="hybrid", layout_unit=("mamba2",) * 5 + ("attn_shared",)),
-                 "9c", id="change2-9c"),
     pytest.param(dict(family="ssm", layout_unit=("mlstm", "slstm"), mlp="none"), "9d",
                  id="change3-9d"),
     pytest.param(dict(family="audio", frontend="frames", mlp="gelu"), "9e",

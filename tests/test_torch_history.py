@@ -80,6 +80,73 @@ def test_codec_encode_matches_jax_bitwise(codec):
             assert tenc.scale[sorted(SHAPES).index("b1")] == 1.0
 
 
+# ragged leaves, an empty one, an all-zero one, and leaves whose codes sit
+# on ties at .5 (max |x| 127 and 254: scale 1 and 2, x / scale = k + 0.5)
+TIE_SHAPES = {"a_ties": (8,), "b_empty": (0,), "c_zero": (7,), "d_ties2": (9,),
+              "e_ragged": (50_001,), "f_ragged": (3,)}
+
+
+def _tie_tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"a_ties": np.asarray([127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5], np.float32),
+            "b_empty": np.zeros(0, np.float32), "c_zero": np.zeros(7, np.float32),
+            "d_ties2": np.asarray([254, 1, 3, 5, -1, -3, -253, 0.999, 2.5], np.float32),
+            "e_ragged": (3.0 * rng.normal(size=50_001)).astype(np.float32),
+            "f_ragged": rng.normal(size=3).astype(np.float32)}
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_codec_encodes_ties_empty_zero_and_ragged_leaves_as_jax(codec):
+    """A row encoded as a torch tensor (on its own device, the recording's
+    path) and as a numpy row gives the JAX codec's codes and scales
+    bitwise, on ties at .5, empty and all-zero leaves and ragged leaves;
+    and a history fed tensor rows (keyframes kept on the device) holds the
+    same entries as one fed numpy rows."""
+    x, base = _tie_tree(1), _tie_tree(2)
+    bounds = leaf_bounds(TIE_SHAPES)
+    xf, bf = _flat(x), _flat(base)
+    tc = T_CODECS[codec]()
+    if codec == "f32":
+        got = [tc.encode_tensor(torch.from_numpy(xf), bounds), tc.encode(xf, bounds)]
+        q, scale = xf, None
+    elif codec.startswith("delta"):
+        got = [tc.encode_delta_tensor(torch.from_numpy(xf), torch.from_numpy(bf), bounds),
+               tc.encode_delta(xf, bf, bounds)]
+        q, scale = _jax_codes(J_CODECS[codec]().encode_delta(x, base))
+    else:
+        got = [tc.encode_tensor(torch.from_numpy(xf), bounds), tc.encode(xf, bounds)]
+        q, scale = _jax_codes(J_CODECS[codec]().encode(x))
+    for enc in got:
+        assert enc.q.dtype == q.dtype and np.array_equal(enc.q, q)
+        if scale is None:
+            assert enc.scale is None
+        else:
+            assert enc.scale.dtype == np.float32
+            assert np.array_equal(enc.scale.view(np.int32), scale.view(np.int32))
+    if codec == "int8":
+        names = sorted(TIE_SHAPES)
+        assert got[0].q[bounds[0]:bounds[1]].tolist() == [127, 0, 2, 2, 0, -2, -2, 126]
+        assert got[0].q[bounds[3]:bounds[4]].tolist() == [127, 0, 2, 2, 0, -2, -126, 0, 1]
+        assert got[0].scale[names.index("c_zero")] == got[0].scale[names.index("b_empty")] == 1.0
+    rows = [(_flat(_tie_tree(s)), _flat(_tie_tree(s + 10))) for s in range(5)]
+    hists = []
+    for as_tensor in (False, True):
+        h = THistory(_tmeta(5), tier="host", codec=codec)
+        h.set_layout(TIE_SHAPES, "cpu")
+        for w, g in rows:
+            if as_tensor:
+                h.append(torch.from_numpy(w.copy()), torch.from_numpy(g.copy()))
+            else:
+                h.append(w.copy(), g.copy())
+        hists.append(h)
+    for t in range(5):
+        for a, b in zip(*(h.encoded_entry(t) for h in hists)):
+            assert np.array_equal(a.q, b.q)
+            assert (a.scale is None) == (b.scale is None)
+            if a.scale is not None:
+                assert np.array_equal(a.scale, b.scale)
+
+
 def _jax_history(codec, steps=20, window=8):
     """A host-tier history trained by the JAX package on the small MLP."""
     ds = j_multiclass(n=400, d=20, num_classes=4, seed=5)

@@ -150,8 +150,8 @@ def test_count_params_at_full_width():
 
 
 def test_layout_rejects_families_not_ported():
-    cfg = dataclasses.replace(get_config("internlm2-1.8b"), family="hybrid",
-                              layout_unit=("mamba2", "attn_shared"))
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), family="ssm",
+                              layout_unit=("mlstm", "slstm"), mlp="none")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layout_of(cfg)
 
