@@ -94,7 +94,7 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      versions at that p; and the train CLI at that cut, its step-0 loss
      split into cross-entropy and the router's aux term;
  16. multi-head latent attention, minicpm3-4b at its published widths:
-     `decode_main` at all 62 layers (tokens/s, ms per step, launches and
+     `decode_main` at 31 of 62 layers (tokens/s, ms per step, launches and
      busy share, memory, the latent cache's bytes), `prefill_fn` (the
      expanded form, no flash launch under flash) against the stepped
      absorbed decode, the card against the port's CPU run (full width at 2
@@ -106,7 +106,7 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      plain versions at that p, and the train CLI at that cut resumed from
      step 4, held bitwise;
  17. the Mamba2 hybrid, zamba2-7b at its published widths: `decode_main`
-     at all 78 layers (tokens/s, ms per step against the step's byte
+     at 7 of 13 units (42 layers; tokens/s, ms per step against the step's byte
      bound, launches and busy share, memory, the SSM, conv and KV states'
      bytes), `prefill_fn` (chunked SSD and the shared block's windowed
      blockwise attention, no flash launch) against the stepped decode in
@@ -119,7 +119,24 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      the profiler, its d_ui/d_us recorded in bf16 (both packages' replays
      fall either side of 1 by the draw), with the replay kernels' launches
      and those kernels against their plain versions at that p, and the
-     train CLI at that cut resumed from step 4, held bitwise.
+     train CLI at that cut resumed from step 4, held bitwise;
+ 18. xLSTM, xlstm-350m at its published widths: `decode_main` at all 24
+     layers (tokens/s, ms per step against the step's byte bound, launches
+     and busy share, memory, the mLSTM's and sLSTM's state bytes),
+     `prefill_fn` (the chunked mLSTM and the sLSTM's loop, no flash
+     launch) against the stepped decode in bf16 and f32, the card against
+     the port's CPU run (full width at 2 layers in bf16, and the reduced
+     model in f32), train -> BaseL -> replay on phase 9's recipe and main
+     path at 2 of 24 layers (cut by the script's time: the sLSTM's loop is
+     host-bound), its d_ui/d_us recorded (both packages' replays miss on
+     the CPU), with the replay kernels' launches and those kernels against
+     their plain versions at that p, the reduced model's f32 replay on the
+     card against the port's CPU run (counters, parameters and d_ui/d_us),
+     and the train CLI at that cut resumed from step 2, held bitwise.
+
+Each train-CLI resume writes one checkpoint (the first one due) and reads
+it: both runs are cut before their last step's write, so the CLI is timed
+without that write.
 
 Phase 2 also holds the bf16 flash kernel to the reference flash's f32 P:
 its mean |err|/(1+|plain|) below a quarter of the bf16-P softmax's.
@@ -145,6 +162,14 @@ runs phase 17 alone, and
     python3 chip_smoke.py --hybrid-dg f32
 
 phase 17 (d) alone in f32 compute (or bf16), holding d_ui < d_us in f32.
+
+    python3 chip_smoke.py --xlstm
+
+runs phase 18 alone, and
+
+    python3 chip_smoke.py --xlstm-dg f32
+
+phase 18 (d) alone in f32 compute (or bf16), recorded against d_us.
 
     python3 chip_smoke.py --lm-blockwise
 
@@ -280,13 +305,14 @@ MOE_PARITY = dict(batch=2, prompt=8, gen=8, x=(2, 64, 2048), tol=1e-4)
 MOE_LM = dict(layers=1, n_params=1_192_886_272, steps=6, burn_in=2, window=1)
 MOE_TRAIN = dict(batch=8, seq=512, steps=4)
 # phase 16: multi-head latent attention, minicpm3-4b at its published widths
-# (40 heads, qk 64 + 32, v 64, ranks 768 / 256).  (a) `decode_main` at all 62
-# layers (p = 4,261,902,848: 17.05 GB f32 cast once to 8.52 GB bf16) on phase
-# 14 (a)'s shape; (b) `prefill_fn` (the expanded form) against the stepped
+# (40 heads, qk 64 + 32, v 64, ranks 768 / 256).  (a) `decode_main` at 31 of
+# its 62 layers (p = 2,318,979,584: 9.28 GB f32 cast once to 4.64 GB bf16; cut
+# by the script's time since phase 18 came in: all 62, p = 4,261,902,848,
+# decoded in the runs that PERF.md section 5 cites) on phase 14 (a)'s shape; (b) `prefill_fn` (the expanded form) against the stepped
 # absorbed decode; (c) card against CPU at full width and 2 layers (bf16), and
 # the reduced model in f32; (d) DeltaGrad on phase 9's recipe and main path at
 # 2 of 62 layers (the one cut; p = 501,406,208); (e) the train CLI at (d)'s cut
-MLA_DECODE = dict(batch=16, prompt=128, gen=64, n_params=4_261_902_848)
+MLA_DECODE = dict(layers=31, batch=16, prompt=128, gen=64, n_params=2_318_979_584)
 MLA_LM = dict(n_params=501_406_208)
 # in bf16 compute the replay's d_ui/d_us on this recipe falls either side of
 # 1 by the draw, in both packages: the bf16 gradient's rounding enters the
@@ -296,15 +322,17 @@ MLA_BF16_MISS = "PERF.md section 7, ROADMAP queue 3"
 # phase 17: the Mamba2 hybrid, zamba2-7b at its published widths (d_model
 # 3584, 13 units of five Mamba2 blocks and one shared attention block, 32
 # heads of 112 attending in a 4096 window, SSM d_state 64, head_dim 64, chunk
-# 128).  (a) `decode_main` at all 78 layers (p = 5,503,481,808: 22.01 GB f32
-# cast once to 11.01 GB bf16) on phase 14 (a)'s shape; (b) `prefill_fn`
+# 128).  (a) `decode_main` at 7 of the 13 units, 42 of 78 layers (p =
+# 3,164,139,888: 12.66 GB f32 cast once to 6.33 GB bf16; cut by the script's
+# time since phase 18 came in: all 78, p = 5,503,481,808, decoded in the runs
+# that PERF.md section 5 cites) on phase 14 (a)'s shape; (b) `prefill_fn`
 # (chunked SSD, windowed blockwise attention) against the stepped decode;
 # (c) card against CPU at full width and 6 layers (bf16), and the reduced
 # hybrid in f32; (d) DeltaGrad on phase 9's recipe and main path at 1 of 13
 # units (6 blocks, p = 824,797,968), cut by host memory: a step's f32 history
 # is 6.6 GB, so T 10 and j0 4 (phase 9's T 12 would hold 79 GB of the 96 GiB
 # host; j0 4 keeps four approx steps at T0 4); (e) the train CLI at (d)'s cut
-HYBRID_DECODE = dict(batch=16, prompt=128, gen=64, n_params=5_503_481_808)
+HYBRID_DECODE = dict(layers=42, batch=16, prompt=128, gen=64, n_params=3_164_139_888)
 # the card holds the replay only with the objective checkpointing each
 # block's activations (`remat`: a Mamba2 block's chunked SSD keeps ~6-7 GB
 # of f32 intermediates for the backward pass at B 32, S 512) and windows of
@@ -337,6 +365,68 @@ HYBRID_PREFILL_F32 = dict(prompt=32, max=2e-2, mean=5e-3)
 # so `--hybrid-dg f32` holds it there (True)
 HYBRID_DG_BAR = {"bf16": "both packages miss in bf16 by the draw on the CPU, "
                          "PERF.md section 6", "f32": True}
+# phase 18: xLSTM, xlstm-350m at its published widths (d_model 1024, 12 units
+# of an mLSTM block (d_inner 2048, 4 heads of 512) and an sLSTM block (4 heads
+# of 256, a gated MLP of 1365), vocab 50304).  (a) `decode_main` at all 24
+# layers (p = 443,057,248: 1.77 GB f32 cast once to 0.89 GB bf16) on phase 14
+# (a)'s shape; (b) `prefill_fn` (the chunked mLSTM, the sLSTM's loop over
+# time) against the stepped decode; (c) card against CPU at full width and 2
+# layers (bf16), and the reduced model in f32; (d) DeltaGrad on phase 9's
+# recipe and main path at 2 of the 24 layers (cut by time, below; the host
+# would hold all 24: a step's f32 history is 3.5 GB, 42.5 GB at T 12), and the
+# reduced model's f32 replay on the card against the port's CPU run; (e) the
+# train CLI at (d)'s cut, 4 steps resumed from step 2 (`XLSTM_TRAIN`: a step
+# takes ~1 s)
+XLSTM_DECODE = dict(batch=16, prompt=128, gen=64, n_params=443_057_248)
+# (d) is cut by the script's time budget to 2 of the 24 layers (1 of 12 units,
+# p = 131,359,752): the sLSTM's loop over time launches 26.9 kernels a step in
+# the forward pass and 70.1 more in the backward (PERF.md section 5), so a
+# gradient at B 32, S 512 is host-bound, 1.60-1.92 s at one unit with remat
+# and 3.49 s at two (BaseL's 12 gradients) on the H100, 17.5 s at 24 layers,
+# and the recipe takes ~36 gradients (train 12, BaseL 12, replay 12): 887 s
+# at 24 layers (train_s, baseline_s and replay_s of a 24-layer run, PERF.md
+# section 6), which the script's 1,200 s cannot hold beside phases 1-17 (at 4
+# layers phase 18 took 199.2 s and the script 1,086 s).  The
+# replay keeps phase 17's per-block remat (at 24 layers the card needs it:
+# without it an sLSTM block keeps ~2.7 GB and an mLSTM block ~2 GB for the
+# backward pass at B 32, S 512, 56 GB for the 24)
+XLSTM_LM = dict(layers=2, n_params=131_359_752, remat=True)
+XLSTM_TRAIN = dict(TRAIN, steps=4, every=2)
+# `prefill_fn` against the stepped decode, against both packages' own pairs
+# on the CPU at the published widths and 24 layers, B 16, a 128 prompt
+# (`python tests/test_torch_xlstm_slice.py prefill,24,full,B16`).  In bf16 the
+# chunked and the recurrent forms round the bf16 residual stream at different
+# places, and the gap grows with depth: the JAX package's own gap is max
+# 2.47247 / mean 0.301456 (the port's 1.95120 / 0.253985), and that bar is
+# held; in f32 (every state f32 in both forms) JAX 3.10642e-3 / 1.98750e-4,
+# the port 3.99703e-3 / 2.71702e-4: h = num / den with |den| small against
+# its terms makes the two forms' f32 sums part, and the card's f32 rounding
+# is another, so f32 is held at about three times the CPU's
+XLSTM_PREFILL_TOL = dict(max=2.5, mean=0.31)
+XLSTM_PREFILL_F32 = dict(prompt=128, max=1e-2, mean=1e-3)
+# the reduced xLSTM's f32 decode, card against CPU: every state is f32, and
+# the two devices' sums part by f32 rounding, which the mLSTM's first steps
+# scale up (v (k.q) / max(|k.q|, exp(-i)) through the cell norm; the port
+# against the JAX package on the CPU: 1.8e-5, tests/test_torch_xlstm_slice.py)
+XLSTM_F32_TOL = 1e-4
+# 18 (d)'s d_ui < d_us, by compute dtype, against both packages on the CPU
+# over 8 draws of the init and documents at d_model 128 (`python
+# tests/test_torch_xlstm_slice.py 128,128,bf16,8 128,128,f32,8`): both
+# packages miss it in both dtypes in all 8 draws, so it is recorded, not
+# held, and `--xlstm-dg f32` records the f32 replay; what the card's replay
+# is held to is the port's CPU run of the same replay (XLSTM_REPLAY_PARITY)
+XLSTM_DG_BAR = {"bf16": "both packages miss on the CPU in bf16, PERF.md section 6",
+                "f32": "both packages miss on the CPU in f32, PERF.md section 6"}
+# 18 (d) on the reduced model (one unit, d_model 64) in f32: the recipe of
+# tests/test_torch_xlstm_slice.py's replay test, where the port's replay is
+# held to the JAX package's (counters equal, parameters within 1e-5), run on
+# the card and on the CPU from the same init; the card is held to the CPU's
+# counters, its parameters within PARITY_TOL (|gap|/|w|) and its d_ui/d_us
+# within `ratio` of the CPU's (a 1e-7 relative change of the init moves the
+# parameters by 1e-7 to 5e-7 and d_ui/d_us by up to 5e-4 of itself, over 6
+# draws on the CPU)
+XLSTM_REPLAY_PARITY = dict(docs=32, seq=32, batch=8, steps=10, lr=0.001,
+                           removed=(3, 11, 25), period=2, burn_in=4, ratio=1e-3)
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -1117,27 +1207,15 @@ def main() -> int:
     # the LM (reduced widths, f32 compute, blockwise attention: the reduced
     # head dim 8 is not one of the flash kernel's): resident delete replay
     lm_small = build(get_config("internlm2-1.8b").reduced(**LM_REDUCED))
-    lm_obj = lm_small.objective(loss_chunk=16, dtype=torch.float32)
-    res = {}
-    for where in ("cuda", "cpu"):
-        docs = token_stream(48, 16, LM_REDUCED["vocab"], seed=0)
-        mp = HistoryMeta(n=48, batch_size=16, seed=5, steps=12,
-                         lr_schedule=((0, 0.05),))
-        cp = dg.DeltaGradConfig(period=2, burn_in=4, history_size=2,
-                                guard=True, curvature_eps=1e-8)
-        init = lm_small.init(seed=1, device="cpu").to(where)
-        _, hp = dg.sgd_train_with_cache(lm_obj, init, docs, mp, device=where)
-        wp, sp = dg.deltagrad_retrain(lm_obj, hp, docs, np.array([3, 11, 25, 40]),
-                                      cp, device=where)
-        res[where] = (wp.flat.cpu(), sp.counters())
-    gap = ((res["cuda"][0] - res["cpu"][0]).norm() / res["cpu"][0].norm()).item()
-    same = res["cuda"][1] == res["cpu"][1]
-    print(f"parity lm reduced f32: card vs cpu params |gap|/|w| {gap:.3e} "
-          f"(tol {PARITY_TOL}); counters "
-          + " ".join(f"{k}={res['cuda'][1][k]}/{res['cpu'][1][k]}"
-                     for k in res["cpu"][1]))
-    if not (gap <= PARITY_TOL and same and res["cpu"][1]["approx_steps"] > 0):
-        fail(f"parity lm reduced: gap {gap:.3e}, counters equal: {same}")
+    replay_card_cpu(
+        torch, np, dev, "parity lm reduced f32",
+        lm_small.objective(loss_chunk=16, dtype=torch.float32),
+        lm_small.init(seed=1, device="cpu"),
+        token_stream(48, 16, LM_REDUCED["vocab"], seed=0),
+        HistoryMeta(n=48, batch_size=16, seed=5, steps=12, lr_schedule=((0, 0.05),)),
+        dg.DeltaGradConfig(period=2, burn_in=4, history_size=2, guard=True,
+                           curvature_eps=1e-8),
+        np.array([3, 11, 25, 40]))
 
     # -- 8. profile of the resident and of a streamed replay -----------------
     profile_replay(torch, "replay", lambda: dg.deltagrad_retrain(
@@ -1190,6 +1268,10 @@ def main() -> int:
     # -- 17. the Mamba2 hybrid ---------------------------------------------------------------
     gc_collect()
     hybrid_phase(torch, np, dev, kernels)
+
+    # -- 18. xLSTM ------------------------------------------------------------------------------
+    gc_collect()
+    xlstm_phase(torch, np, dev, kernels)
 
     # -- results ---------------------------------------------------------------------
     if FAILURES:
@@ -1261,11 +1343,46 @@ def decode_train_phase(torch, np, dev, kernels) -> None:
           flush=True)
 
 
+def replay_card_cpu(torch, np, dev, label, obj, init, docs, meta, dgc, removed,
+                    ratio_tol=None) -> None:
+    """The same resident train -> replay of `obj` from `init` (on the CPU)
+    on the card and on the CPU.  Held: the counters equal, at least one
+    approx step, and the card's parameters within PARITY_TOL of the CPU's
+    (|gap|/|w|).  With `ratio_tol`, BaseL runs on both too and the card's
+    d_ui/d_us is held within `ratio_tol` of the CPU's, relative."""
+    from repro_torch.core import deltagrad as dg
+
+    res = []
+    for where in (dev, "cpu"):
+        w0 = init.with_flat(init.flat.to(where, copy=True))
+        w, hist = dg.sgd_train_with_cache(obj, w0, docs, meta, device=where)
+        w_i, st = dg.deltagrad_retrain(obj, hist, docs, removed, dgc, device=where)
+        ratio = None
+        if ratio_tol is not None:
+            w_u, _ = dg.baseline_retrain(obj, docs, meta, w0, removed, device=where)
+            ratio = ((w_u.flat - w_i.flat).norm() / (w_u.flat - w.flat).norm()).item()
+        res.append((w_i.flat.cpu(), st.counters(), ratio))
+    card, cpu = res
+    gap = ((card[0] - cpu[0]).norm() / cpu[0].norm()).item()
+    same = card[1] == cpu[1]
+    ratio_ok = ratio_tol is None or abs(card[2] - cpu[2]) <= ratio_tol * cpu[2]
+    print(f"{label}: card vs cpu params |gap|/|w| {gap:.3e} (tol {PARITY_TOL}); "
+          + ("" if ratio_tol is None else
+             f"d_ui/d_us {card[2]:.6e} / {cpu[2]:.6e} (tol {ratio_tol} relative); ")
+          + "counters " + " ".join(f"{k}={card[1][k]}/{cpu[1][k]}" for k in cpu[1]),
+          flush=True)
+    if not (gap <= PARITY_TOL and same and ratio_ok and cpu[1]["approx_steps"] > 0):
+        fail(f"{label}: gap {gap:.3e}, counters equal: {same}, d_ui/d_us "
+             f"{card[2]} against {cpu[2]}")
+
+
 def decode_cpu_parity(torch, np, dev, smi, pcfg) -> None:
     """The card's bf16 `generate` against the port's CPU run on the same
     bf16 weights of `pcfg` (full width, a few layers): the logits after the
-    prompt within `DECODE_CPU_TOL`, the greedy tokens equal up to the
-    first step whose top-2 margin is under the bar."""
+    prompt within `DECODE_CPU_TOL`, the greedy tokens equal before the
+    first step whose top-2 margin (the margin of the logits that choose
+    that step's token) is under the bar: from that step on, the two
+    devices may order a near tie either way."""
     from repro_torch.launch import serve
     from repro_torch.models.registry import build
     from repro_torch.models.transformer import cast_params
@@ -1283,35 +1400,40 @@ def decode_cpu_parity(torch, np, dev, smi, pcfg) -> None:
     gap = (card["prompt_logits"].cpu() - cpu["prompt_logits"]).abs()
     mx, mean = gap.max().item(), gap.mean().item()
     near = np.nonzero((card["margins"] < DECODE_CPU_TOL["max"]).any(axis=0))[0]
-    upto = int(near[0]) + 1 if len(near) else DECODE_PARITY["gen"]
+    upto = int(near[0]) if len(near) else DECODE_PARITY["gen"]
     same = np.array_equal(card["tokens"][:, :upto], cpu["tokens"][:, :upto])
     print(f"decode card vs cpu ({pcfg.name} full width, {pcfg.n_layers} "
           f"layers, B={DECODE_PARITY['batch']}, prompt {DECODE_PARITY['prompt']}, "
           f"gen {DECODE_PARITY['gen']}): logits max |gap| {mx:.6e} mean "
           f"{mean:.6e} (tol {DECODE_CPU_TOL['max']} / {DECODE_CPU_TOL['mean']}); "
-          f"greedy tokens equal through step {upto - 1} "
-          f"({'first top-2 margin under the tol at step ' + str(upto - 1) if len(near) else 'no margin under the tol'}): "
+          f"greedy tokens equal before step {upto} "
+          f"({'first top-2 margin under the tol at step ' + str(upto) if len(near) else 'no margin under the tol'}): "
           f"{same}; all {DECODE_PARITY['gen']} equal: "
           f"{np.array_equal(card['tokens'], cpu['tokens'])} | {smi}", flush=True)
     if not (mx <= DECODE_CPU_TOL["max"] and mean <= DECODE_CPU_TOL["mean"] and same):
         fail(f"decode card vs cpu ({pcfg.name}): logits max {mx:.3e} mean {mean:.3e}, "
-             f"tokens through step {upto - 1} equal: {same}")
+             f"tokens before step {upto} equal: {same}")
     del model, params, params_cpu, card, cpu
     gc_collect()
 
 
-def train_resume(torch, np, kernels, smi, tcfg, n_params, flash_per_step) -> None:
-    """The train CLI's LM mode on `tcfg` (registered), TRAIN's B, S and
-    steps with a checkpoint every TRAIN["every"] steps, under flash, then
+def train_resume(torch, np, kernels, smi, tcfg, n_params, flash_per_step,
+                 run=TRAIN) -> None:
+    """The train CLI's LM mode on `tcfg` (registered), `run`'s B, S and
+    steps with a checkpoint every run["every"] steps, under flash, then
     re-run after a crash past the first checkpoint: the resumed run held
     bitwise to the uninterrupted one, `flash_per_step` flash launches a
-    step and no other launch."""
-    import os
+    step and no other launch.  Each run is cut before its last step's
+    checkpoint is written, as a crash after the last step would cut it
+    (`checkpoint.save` is wrapped for the two runs): the first checkpoint
+    due is the one write, and the resume reads it.  The wall times so
+    cover the CLI without its last write."""
     import shutil
     import tempfile
 
     from repro_torch.launch import train
     from repro_torch.models.attention_config import use_attention_impl
+    from repro_torch.train import checkpoint as ckpt
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
@@ -1322,38 +1444,48 @@ def train_resume(torch, np, kernels, smi, tcfg, n_params, flash_per_step) -> Non
         if free < 4 * state_bytes:
             fail(f"train: {free / 1e9:.1f} GB free, need {4 * state_bytes / 1e9:.1f}")
             return
-        argv = ["--arch", tcfg.name, "--batch", str(TRAIN["batch"]),
-                "--seq", str(TRAIN["seq"]), "--steps", str(TRAIN["steps"]),
-                "--ckpt", ckpt_dir, "--ckpt-every", str(TRAIN["every"]),
+        argv = ["--arch", tcfg.name, "--batch", str(run["batch"]),
+                "--seq", str(run["seq"]), "--steps", str(run["steps"]),
+                "--ckpt", ckpt_dir, "--ckpt-every", str(run["every"]),
                 "--log-every", "1"]
+        save, writes = ckpt.save, []
+
+        def save_but_the_last(path, step, state):
+            if step != run["steps"]:
+                writes.append(step)
+                save(path, step, state)
+
         runs = {}
         for name in ("whole", "resumed"):
-            if name == "resumed":  # a crash after step 4's checkpoint
-                shutil.rmtree(os.path.join(ckpt_dir, f"step_{TRAIN['steps']:08d}"))
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            with use_attention_impl("flash"):
-                out, n = counted_run(kernels, lambda: train.main(argv))
+            ckpt.save = save_but_the_last
+            try:
+                with use_attention_impl("flash"):
+                    out, n = counted_run(kernels, lambda: train.main(argv))
+            finally:
+                ckpt.save = save
             wall = time.perf_counter() - t0
             steps = len(out["losses"])
             runs[name] = out
             print(f"train {name} ({tcfg.name}: p={out['state'].params.numel}, "
-                  f"B={TRAIN['batch']} S={TRAIN['seq']} AdamW warmup-cosine, "
-                  f"flash): steps {out['start']}..{TRAIN['steps'] - 1}, "
+                  f"B={run['batch']} S={run['seq']} AdamW warmup-cosine, "
+                  f"flash): steps {out['start']}..{run['steps'] - 1}, "
                   f"p50 {out['timer'].percentile(0.5) * 1e3:.3f} ms/step "
                   f"(StepTimer), loss "
                   + " ".join(f"{s}:{v:.6f}" for s, v in sorted(out["losses"].items()))
                   + f"; flash launches {n['flash_attention']} "
                   f"({n['flash_attention'] / max(steps, 1):.2f}/step); "
                   f"max_memory_allocated={torch.cuda.max_memory_allocated()}; "
-                  f"wall {wall:.2f} s with the checkpoints | {smi}", flush=True)
+                  f"wall {wall:.2f} s with the checkpoints written at steps "
+                  f"{writes} | {smi}", flush=True)
             if n["flash_attention"] != flash_per_step * steps or any(
                     v for k, v in n.items() if k != "flash_attention"):
                 fail(f"train {name}: launches {n} for {steps} steps, want "
                      f"{flash_per_step} flash launches a step and nothing else")
         a, b = runs["whole"], runs["resumed"]
-        same = (b["start"] == TRAIN["every"]
-                and a["state"].step == b["state"].step == TRAIN["steps"]
+        same = (writes == [run["every"]] and b["start"] == run["every"]
+                and a["state"].step == b["state"].step == run["steps"]
                 and all(a["losses"][s] == b["losses"][s] for s in b["losses"])
                 and torch.equal(a["state"].params.flat, b["state"].params.flat)
                 and all(torch.equal(a["state"].opt_state[k], b["state"].opt_state[k])
@@ -1363,12 +1495,12 @@ def train_resume(torch, np, kernels, smi, tcfg, n_params, flash_per_step) -> Non
         gaps["params"] = (a["state"].params.flat - b["state"].params.flat).abs().max().item()
         print(f"train resume from step {b['start']}: bitwise the uninterrupted "
               f"run: {same} (max |gap| {json.dumps(gaps)}); loss step 0 "
-              f"{a['losses'][0]:.6f}, step {TRAIN['steps'] - 1} "
-              f"{a['losses'][TRAIN['steps'] - 1]:.6f}", flush=True)
+              f"{a['losses'][0]:.6f}, step {run['steps'] - 1} "
+              f"{a['losses'][run['steps'] - 1]:.6f}", flush=True)
         if not same:
             fail(f"train: the resumed run is not bitwise the uninterrupted one {gaps}")
         if not (np.isfinite(list(a["losses"].values())).all()
-                and a["losses"][TRAIN["steps"] - 1] < a["losses"][0]):
+                and a["losses"][run["steps"] - 1] < a["losses"][0]):
             fail(f"train {tcfg.name}: losses {a['losses']}")
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1777,7 +1909,7 @@ def mla_phase(torch, np, dev, kernels) -> None:
     this phase launches flash."""
     import dataclasses as dc
 
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import get_config, register
     from repro_torch.models.registry import build
 
     t_phase = time.perf_counter()
@@ -1789,21 +1921,24 @@ def mla_phase(torch, np, dev, kernels) -> None:
         marks.append(time.perf_counter())
         print(f"mla: {part} took {marks[-1] - marks[-2]:.1f} s", flush=True)
 
-    # (a) all 62 layers; (b) the expanded prefill against the absorbed decode
+    # (a) 31 of the 62 layers (MLA_DECODE, cut by time); (b) the expanded
+    # prefill against the absorbed decode
     cfg = get_config("minicpm3-4b")
-    label = f"{cfg.name} {cfg.n_layers} layers"
-    res = decode_run(torch, kernels, smi, label, cfg, MLA_DECODE)
+    dcfg = register(dc.replace(cfg, name=f"{cfg.name}-{MLA_DECODE['layers']}l",
+                               n_layers=MLA_DECODE["layers"]))
+    label = f"{cfg.name} {dcfg.n_layers} of {cfg.n_layers} layers"
+    res = decode_run(torch, kernels, smi, label, dcfg, MLA_DECODE)
     m, B = cfg.mla, MLA_DECODE["batch"]
     slots = MLA_DECODE["prompt"] + MLA_DECODE["gen"]
     per_pos = m.kv_lora_rank + m.qk_rope_head_dim
     expanded = cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim)
-    print(f"decode {label}: latent cache {cfg.n_layers * B * slots * per_pos * 2} "
+    print(f"decode {label}: latent cache {dcfg.n_layers * B * slots * per_pos * 2} "
           f"bytes ({per_pos} bf16 values a position a layer, {slots} positions "
-          f"x B {B} x {cfg.n_layers} layers; expanded k and v would hold "
+          f"x B {B} x {dcfg.n_layers} layers; expanded k and v would hold "
           f"{expanded}, {expanded / per_pos:.1f}x)", flush=True)
-    lap("(a) decode_main at 62 layers")
-    model = build(cfg)
-    prefill_check(torch, dev, kernels, smi, label, model, res, cfg.n_layers)
+    lap(f"(a) decode_main at {dcfg.n_layers} layers")
+    model = build(dcfg)
+    prefill_check(torch, dev, kernels, smi, label, model, res, dcfg.n_layers)
     lap("(b) prefill_fn")
     # one step: ~6,000 launches, near as many events as phase 14's 8 steps
     decode_profile(torch, dev, smi, label, model, res, steps=1)
@@ -1927,7 +2062,7 @@ def hybrid_phase(torch, np, dev, kernels) -> None:
     this phase launches flash."""
     import dataclasses as dc
 
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import get_config, register
     from repro_torch.models.registry import build
 
     t_phase = time.perf_counter()
@@ -1939,16 +2074,19 @@ def hybrid_phase(torch, np, dev, kernels) -> None:
         marks.append(time.perf_counter())
         print(f"hybrid: {part} took {marks[-1] - marks[-2]:.1f} s", flush=True)
 
-    # (a) all 78 layers; (b) the chunked prefill against the stepped decode
+    # (a) 7 of the 13 units (HYBRID_DECODE, cut by time); (b) the chunked
+    # prefill against the stepped decode
     cfg = get_config("zamba2-7b")
-    label = f"{cfg.name} {cfg.n_layers} layers"
-    res = decode_run(torch, kernels, smi, label, cfg, HYBRID_DECODE)
-    hybrid_step_bound(torch, smi, label, cfg, res)
-    lap("(a) decode_main at 78 layers")
-    model = build(cfg)
-    prefill_check(torch, dev, kernels, smi, label, model, res, cfg.n_layers,
+    dcfg = register(dc.replace(cfg, name=f"{cfg.name}-{HYBRID_DECODE['layers']}l",
+                               n_layers=HYBRID_DECODE["layers"]))
+    label = f"{cfg.name} {dcfg.n_layers} of {cfg.n_layers} layers"
+    res = decode_run(torch, kernels, smi, label, dcfg, HYBRID_DECODE)
+    hybrid_step_bound(torch, smi, label, dcfg, res)
+    lap(f"(a) decode_main at {dcfg.n_layers} layers")
+    model = build(dcfg)
+    prefill_check(torch, dev, kernels, smi, label, model, res, dcfg.n_layers,
                   tol=HYBRID_PREFILL_TOL)
-    hybrid_prefill_f32(torch, dev, smi, label, model, res["prompt"])
+    prefill_f32(torch, dev, smi, label, model, res["prompt"], HYBRID_PREFILL_F32)
     cumsum_on_card(torch, dev, cfg)
     lap("(b) prefill_fn")
     decode_profile(torch, dev, smi, label, model, res, steps=1)
@@ -1978,13 +2116,14 @@ def hybrid_phase(torch, np, dev, kernels) -> None:
     print(f"hybrid: phase wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def hybrid_prefill_f32(torch, dev, smi, label, model, prompt) -> None:
+def prefill_f32(torch, dev, smi, label, model, prompt, bar) -> None:
     """(b) in f32 compute at full width and depth: `prefill_fn` on the
-    first HYBRID_PREFILL_F32["prompt"] prompt tokens against the stepped
-    decode of the same tokens, both from `decode_main`'s f32 master weights
-    (seed 0): the two forms agree to the bf16 KV caches' rounding, which
-    shows the bf16 gap is rounding, not a fault."""
-    n = HYBRID_PREFILL_F32["prompt"]
+    first bar["prompt"] prompt tokens against the stepped decode of the
+    same tokens, both from `decode_main`'s f32 master weights (seed 0),
+    held to `bar`: the two forms agree to f32 rounding (the hybrid's to its
+    bf16 KV caches' rounding), which shows the bf16 gap is rounding, not a
+    fault."""
+    n = bar["prompt"]
     params = model.init(seed=0, device=dev)
     toks = torch.from_numpy(prompt[:, :n]).to(dev)
     caches = model.cache_init(toks.shape[0], n, device=dev)
@@ -1996,9 +2135,8 @@ def hybrid_prefill_f32(torch, dev, smi, label, model, prompt) -> None:
     mx, mean = gap.max().item(), gap.mean().item()
     print(f"decode {label} prefill_fn f32 compute, {tuple(toks.shape)} tokens: "
           f"against the stepped f32 decode's last logits max |gap| {mx:.6e} mean "
-          f"{mean:.6e} (tol {HYBRID_PREFILL_F32['max']} / {HYBRID_PREFILL_F32['mean']}) "
-          f"| {smi}", flush=True)
-    if not (mx <= HYBRID_PREFILL_F32["max"] and mean <= HYBRID_PREFILL_F32["mean"]):
+          f"{mean:.6e} (tol {bar['max']} / {bar['mean']}) | {smi}", flush=True)
+    if not (mx <= bar["max"] and mean <= bar["mean"]):
         fail(f"decode {label}: f32 prefill_fn against the stepped decode: max "
              f"{mx:.3e} mean {mean:.3e}")
     del params, caches
@@ -2027,7 +2165,7 @@ def cumsum_on_card(torch, dev, cfg) -> None:
 def hybrid_step_bound(torch, smi, label, cfg, res) -> None:
     """The decode state's bytes and a step's byte bound on the hybrid: the
     bf16 weights, the shared block's once per occurrence (its weights are
-    read by each of the 13 units), the embedding's B rows, and the state
+    read by each unit), the embedding's B rows, and the state
     read and written (SSM and conv states) or read (the KV caches)."""
     from repro_torch.models.mamba2 import _dims
     from repro_torch.models.transformer import layout_of, param_shapes
@@ -2053,8 +2191,143 @@ def hybrid_step_bound(torch, smi, label, cfg, res) -> None:
           f"{n_units} times, the states read and written, the KV caches read): "
           f"byte bound {bound:.4f} ms against {res['ms_per_token']:.4f} ms a step "
           f"({res['ms_per_token'] / bound:.1f}x) | {smi}", flush=True)
-    if ssm != 1_908_408_320 or conv != 91_054_080 or kv != 572_522_496:
+    # a unit's states at B 16: five Mamba2 blocks' SSM and conv states, and
+    # the shared block's KV cache (all 13 units: 1,908,408,320, 91,054,080
+    # and 572,522,496 bytes)
+    if (ssm, conv, kv) != (n_units * 146_800_640, n_units * 7_004_160,
+                           n_units * 44_040_192):
         fail(f"decode {label}: state bytes ssm {ssm} conv {conv} kv {kv}")
+
+
+def xlstm_phase(torch, np, dev, kernels) -> None:
+    """Phase 18: xLSTM (xlstm-350m) at its published widths through the
+    model facade's three paths, decode (`decode_main`, all 24 layers), the
+    DeltaGrad objective (train -> BaseL -> replay, 2 layers) and the train
+    CLI (2 layers; timed without its last checkpoint write, as
+    `train_resume` cuts it), each run with the launch counts zeroed just
+    before and read after; and the card against the port's CPU run, in
+    decode and in the reduced model's replay.  The stack has no attention
+    block and its cells no kernel of their own (einsums and loops over
+    chunks and over time, as the reference's scans), so no path of this
+    phase launches flash; the replay launches its three kernels."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"xlstm: MemAvailable {mem_available_gb():.1f} GiB at the start", flush=True)
+    marks = [t_phase]
+
+    def lap(part: str) -> None:  # where the phase's time goes
+        marks.append(time.perf_counter())
+        print(f"xlstm: {part} took {marks[-1] - marks[-2]:.1f} s", flush=True)
+
+    # (a) all 24 layers; (b) the chunked prefill against the stepped decode
+    cfg = get_config("xlstm-350m")
+    label = f"{cfg.name} {cfg.n_layers} layers"
+    res = decode_run(torch, kernels, smi, label, cfg, XLSTM_DECODE)
+    xlstm_step_bound(smi, label, cfg, res)
+    lap("(a) decode_main at 24 layers")
+    model = build(cfg)
+    prefill_check(torch, dev, kernels, smi, label, model, res, cfg.n_layers,
+                  tol=XLSTM_PREFILL_TOL)
+    prefill_f32(torch, dev, smi, label, model, res["prompt"], XLSTM_PREFILL_F32)
+    lap("(b) prefill_fn")
+    decode_profile(torch, dev, smi, label, model, res, steps=1)
+    del res, model
+    gc_collect()
+    lap("(a) the decode profile")
+
+    # (c) the card against the port's CPU run
+    decode_cpu_parity(torch, np, dev, smi,
+                      dc.replace(cfg, n_layers=DECODE_PARITY["layers"]))
+    rcfg = cfg.reduced()
+    mx, same = reduced_f32_parity(torch, np, dev, rcfg)
+    print(f"xlstm card vs cpu, reduced {cfg.name} in f32 (one unit, d_model "
+          f"{rcfg.d_model}, B {MOE_PARITY['batch']}, {MOE_PARITY['prompt']} + "
+          f"{MOE_PARITY['gen']} tokens): logits max |gap| {mx:.6e} (tol "
+          f"{XLSTM_F32_TOL}); greedy tokens equal: {same}", flush=True)
+    if not (mx <= XLSTM_F32_TOL and same):
+        fail(f"xlstm card vs cpu reduced f32: logits {mx:.3e}, tokens equal {same}")
+    lap("(c) card against CPU")
+
+    # (d) DeltaGrad at 2 of 24 layers (XLSTM_LM), and the reduced model's
+    # f32 replay against the CPU's; (e) the train CLI at that cut
+    lcfg = xlstm_deltagrad(torch, np, dev, kernels, smi)
+    lap(f"(d) DeltaGrad at {XLSTM_LM['layers']} layers")
+    xlstm_replay_parity(torch, np, dev, rcfg)
+    lap("(d) the reduced replay, card against CPU")
+    train_resume(torch, np, kernels, smi, lcfg, XLSTM_LM["n_params"], flash_per_step=0,
+                 run=XLSTM_TRAIN)
+    lap("(e) the train CLI, resumed")
+    print(f"xlstm: phase wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def xlstm_replay_parity(torch, np, dev, rcfg) -> None:
+    """18 (d) on the reduced xLSTM `rcfg` in f32: XLSTM_REPLAY_PARITY's
+    recipe (the port's replay test's) on the card and on the CPU from the
+    port's init (seed 0), through `replay_card_cpu`, d_ui/d_us included."""
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core.history import HistoryMeta
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models.registry import build
+
+    R = XLSTM_REPLAY_PARITY
+    model = build(rcfg)
+    replay_card_cpu(
+        torch, np, dev, f"xlstm replay reduced f32 (one unit, d_model {rcfg.d_model}, "
+        f"{R['docs']} docs of {R['seq']}, B {R['batch']}, T {R['steps']}, lr {R['lr']})",
+        model.objective(loss_chunk=R["seq"], dtype=torch.float32),
+        model.init(seed=0, device="cpu"),
+        token_stream(R["docs"], R["seq"], rcfg.vocab, seed=0),
+        HistoryMeta(n=R["docs"], batch_size=R["batch"], seed=5, steps=R["steps"],
+                    lr_schedule=((0, R["lr"]),)),
+        dg.DeltaGradConfig(period=R["period"], burn_in=R["burn_in"], history_size=2,
+                           guard=True, curvature_eps=1e-8),
+        np.array(R["removed"]), ratio_tol=R["ratio"])
+
+
+def xlstm_step_bound(smi, label, cfg, res) -> None:
+    """The decode state's bytes and a step's byte bound on xLSTM: the bf16
+    weights but the embedding's, its B rows, and every state read and
+    written (f32: an mLSTM block's C, n and m, an sLSTM block's c, n, h
+    and m)."""
+    from repro_torch.models.transformer import init_caches, layout_of, param_shapes
+
+    _, n_units = layout_of(cfg)
+    B = XLSTM_DECODE["batch"]
+    meta = init_caches(cfg, B, 1, device="meta")
+    state = {pos: sum(v.numel() * v.element_size() for v in c.values())
+             for pos, c in meta.items()}
+    mem = meta["u0"]["C"].numel() * 4
+    shapes = param_shapes(cfg)
+    p = sum(math.prod(v) for v in shapes.values())
+    weights = p - math.prod(shapes["embed"]) + B * cfg.d_model
+    step_bytes = 2 * weights + 2 * sum(state.values())
+    bound, _ = bound_ms(step_bytes, 0.0)
+    print(f"decode {label}: state bytes: mLSTM {state['u0']} (C {mem}: {n_units} "
+          f"blocks x B {B} x {cfg.n_heads} heads x 512 x 512 f32), sLSTM "
+          f"{state['u1']}; a step moves {step_bytes / 1e9:.3f} GB (bf16 weights "
+          f"{2 * weights / 1e9:.3f} GB, the states read and written): byte bound "
+          f"{bound:.4f} ms against {res['ms_per_token']:.4f} ms a step "
+          f"({res['ms_per_token'] / bound:.1f}x) | {smi}", flush=True)
+    if mem != 805_306_368:
+        fail(f"decode {label}: the mLSTM's C holds {mem} bytes, want 805306368")
+
+
+def xlstm_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
+    """18 (d): DeltaGrad on xlstm-350m at full width and 2 of its 24 layers
+    (cut by time), on phase 9's recipe and main path, with per-block remat
+    (`XLSTM_LM`), in the compute `dtype` (None: the model's bf16), through
+    `stack_deltagrad`.  The replay is not profiled: its sLSTM steps launch
+    ~27 kernels each, 512 a block a forward pass, ~1 M a replay.
+    ``--xlstm-dg f32`` runs this alone in f32 compute (`main_path`
+    False).  Returns the config, registered for the train CLI."""
+    return stack_deltagrad(torch, np, dev, kernels, smi, "xlstm-350m", "xlstm lm",
+                           XLSTM_LM, XLSTM_DG_BAR, "1 of 12 units, cut by time",
+                           dtype=dtype, main_path=main_path)
 
 
 def hybrid_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
@@ -2063,40 +2336,54 @@ def hybrid_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
     which the windowed shared block never reaches; a host f32 history)
     cut to T 10 and j0 4 by host memory and to windows of one step and
     per-block remat by the card's (`HYBRID_LM`), in the compute `dtype`
-    (None: the model's bf16).  On the main path the
-    replay runs once, under the profiler, with the launch counts zeroed
-    just before and read after, and the three replay kernels are held
-    against their plain versions at this p.  Held: no flash or dequant
-    launch, each replay kernel launched once per approx step (at least
-    once where the guard sent a segment back), and d_ui < d_us where both
-    packages meet it on the CPU (`HYBRID_DG_BAR`).  ``--hybrid-dg f32``
-    runs this alone in f32 compute (`main_path` False).  Returns the
-    6-layer config, registered for the train CLI."""
+    (None: the model's bf16), through `stack_deltagrad`; on the main path
+    the replay runs under the profiler.  ``--hybrid-dg f32`` runs this
+    alone in f32 compute (`main_path` False).  Returns the 6-layer config,
+    registered for the train CLI."""
+    cut = f"1 of 13 units; cut from T {LM['steps']}, j0 {LM_DG['burn_in']}"
+    return stack_deltagrad(torch, np, dev, kernels, smi, "zamba2-7b", "hybrid lm",
+                           HYBRID_LM, HYBRID_DG_BAR, cut, dtype=dtype,
+                           main_path=main_path, profile=main_path)
+
+
+def stack_deltagrad(torch, np, dev, kernels, smi, arch, tag, cut, bars, note,
+                    dtype=None, main_path=True, profile=False):
+    """DeltaGrad on `arch` at full width and cut["layers"] layers, on phase
+    9's recipe and main path (``attn_impl="flash"``; a host f32 history),
+    with the cut's T, j0, window and remat where it names them (phase 9's
+    where not), in the compute `dtype` (None: the model's bf16).  On the
+    main path the replay runs once with the launch counts zeroed just
+    before and read after (under the profiler if `profile`), and the three
+    replay kernels are held against their plain versions at this p.  Held:
+    no flash or dequant launch (no plain attention block is reached, and
+    the f32 history is fetched), each replay kernel launched once per
+    approx step (at least once where the guard sent a segment back), and
+    d_ui < d_us where both packages meet it on the CPU (``bars[dtype]``
+    True; else recorded).  Returns the cut config, registered for the
+    train CLI."""
     import dataclasses as dc
 
     from repro_torch.configs.registry import register
     from repro_torch.core import deltagrad as dg
 
     what = "bf16" if dtype is None else "f32"
-    print(f"hybrid lm: MemAvailable {mem_available_gb():.1f} GiB at the start",
-          flush=True)
+    print(f"{tag}: MemAvailable {mem_available_gb():.1f} GiB at the start", flush=True)
     cfg, model, p0, docs, meta, dgc, removed, obj = lm_setup(
-        torch, np, dev, "zamba2-7b", dtype, layers=HYBRID_LM["layers"],
-        steps=HYBRID_LM["steps"], burn_in=HYBRID_LM["burn_in"],
-        window=HYBRID_LM["window"], remat=HYBRID_LM["remat"])
+        torch, np, dev, arch, dtype, layers=cut["layers"],
+        steps=cut.get("steps", LM["steps"]),
+        burn_in=cut.get("burn_in", LM_DG["burn_in"]),
+        window=cut.get("window", LM_DG["stream_window"]), remat=cut["remat"])
     lcfg = register(dc.replace(cfg, name=f"{cfg.name}-{cfg.n_layers}l"))
-    if p0.numel != HYBRID_LM["n_params"]:
-        fail(f"hybrid lm: p = {p0.numel}, want {HYBRID_LM['n_params']}")
-    print(f"hybrid lm: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} of "
-          f"{cfg.head_dim} window={cfg.attn_window} ssm={dc.asdict(cfg.ssm)} "
-          f"d_ff={cfg.d_ff} vocab={cfg.vocab} layers={cfg.n_layers} of 78 (1 of 13 "
-          f"units) p={p0.numel} ({p0.numel * 4 / 1e9:.3f} GB a f32 vector) {what} "
-          f"compute docs={LM['docs']}x{LM['seq']} B={LM['batch']} T={meta.steps} "
-          f"T0={dgc.period} j0={dgc.burn_in} m={dgc.history_size} "
+    if p0.numel != cut["n_params"]:
+        fail(f"{tag}: p = {p0.numel}, want {cut['n_params']}")
+    print(f"{tag}: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} of "
+          f"{cfg.head_dim} unit={cfg.layout_unit} layers={cfg.n_layers} "
+          f"({note}) vocab={cfg.vocab} p={p0.numel} ({p0.numel * 4 / 1e9:.3f} GB a "
+          f"f32 vector) {what} compute docs={LM['docs']}x{LM['seq']} B={LM['batch']} "
+          f"T={meta.steps} T0={dgc.period} j0={dgc.burn_in} m={dgc.history_size} "
           f"window={dgc.stream_window} removed={removed.tolist()}; the host f32 "
-          f"history needs {meta.steps * 2 * p0.numel * 4 / 1e9:.1f} GB (cut from "
-          f"T {LM['steps']}, j0 {LM_DG['burn_in']}); remat={HYBRID_LM['remat']}",
-          flush=True)
+          f"history needs {meta.steps * 2 * p0.numel * 4 / 1e9:.1f} GB; "
+          f"remat={cut['remat']}", flush=True)
     forwards = count_forwards(obj)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2112,38 +2399,38 @@ def hybrid_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
     def replay():
         return dg.deltagrad_retrain(obj, hist, docs, removed, dgc)
 
-    label = f"hybrid lm {what} compute, f32 host"
+    label = f"{tag} {what} compute, f32 host"
     with bv_ratios() as ratios:
         (w_i, st), n = counted_run(kernels, (lambda: profile_replay(
-            torch, f"{label} replay", replay)) if main_path else replay)
+            torch, f"{label} replay", replay)) if profile else replay)
     peak = torch.cuda.max_memory_allocated()
     d_ui = (w_u.flat - w_i.flat).norm().item()
     d_us = (w_u.flat - w_star.flat).norm().item()
     print(replay_line(label, train_s, st_u, st, d_ui, d_us, ratios, dgc)
-          + (" (replay_s under the profiler)" if main_path else "")
+          + (" (replay_s under the profiler)" if profile else "")
           + f" max_memory_allocated (train)={train_peak} (replay)={peak} "
           f"host_bytes={hist.nbytes()} forward_passes={forwards[0]} launches "
           f"{json.dumps(n)}; MemAvailable {mem_available_gb():.1f} GiB with the "
           f"history | {smi}", flush=True)
-    if not (bool(torch.isfinite(w_i.flat).all()) and w_i.numel == HYBRID_LM["n_params"]):
-        fail("hybrid lm: replay parameters are not finite of the expected shape")
-    held = HYBRID_DG_BAR[what]
-    print(f"hybrid lm {what} compute: d_ui/d_us = {d_ui / d_us:.4e}: "
+    if not (bool(torch.isfinite(w_i.flat).all()) and w_i.numel == cut["n_params"]):
+        fail(f"{tag}: replay parameters are not finite of the expected shape")
+    held = bars[what]
+    print(f"{tag} {what} compute: d_ui/d_us = {d_ui / d_us:.4e}: "
           + ("below the bar of 1" if d_ui < d_us else "MISSES the bar of 1")
           + (" (held)" if held is True else f" (recorded, not held; {held})"),
           flush=True)
     if held is True and not d_ui < d_us:
-        fail(f"hybrid lm {what}: d_ui {d_ui:.3e} not below d_us {d_us:.3e}")
+        fail(f"{tag} {what}: d_ui {d_ui:.3e} not below d_us {d_us:.3e}")
     if st.approx_steps <= 0:
-        fail("hybrid lm: the replay took no approx step")
+        fail(f"{tag}: the replay took no approx step")
     if n["flash_attention"] or n["dequant_update"] or n["dequant_sub"]:
-        fail(f"hybrid lm: launches {n}: the shared block's attention is "
-             "windowed (blockwise) and the f32 history is fetched")
-    check_replay_launches("hybrid lm", n, st)
+        fail(f"{tag}: launches {n}: no plain attention block is reached and "
+             "the f32 history is fetched")
+    check_replay_launches(tag, n, st)
     del w_star, w_u, w_i, p0, hist, obj, model
     gc_collect()
     if main_path:
-        replay_kernels_at(torch, dev, HYBRID_LM["n_params"], label="hybrid lm")
+        replay_kernels_at(torch, dev, cut["n_params"], label=tag)
     return lcfg
 
 
@@ -2200,11 +2487,13 @@ def prefill_check(torch, dev, kernels, smi, label, model, res, layers,
     a GQA model, none for MLA or for a windowed attention (the hybrid's
     shared block), whose attention is blockwise whatever the switch, and
     none under blockwise), and its last logits against the
-    stepped decode's, held to `tol` (None: recorded only).  For an MoE model
+    stepped decode's, held to `tol` (None: recorded only).  An xLSTM
+    unit has no attention block, so no flash launch either.  For an MoE model
     (`moe_cfg`) also flash against blockwise: both route the B*S tokens as
     one group, so only the attention differs; see `moe_prefill_pair`."""
     from repro_torch.models import moe
     from repro_torch.models.attention_config import use_attention_impl
+    from repro_torch.models.transformer import layout_of
 
     prompt = torch.from_numpy(res["prompt"]).to(dev)
     want = res["prompt_logits"]
@@ -2242,7 +2531,8 @@ def prefill_check(torch, dev, kernels, smi, label, model, res, layers,
             fail(f"decode {label}: prefill_fn ({impl}) against the stepped "
                  f"decode: max {mx:.3e} mean {mean:.3e}")
         # flash takes only a GQA block's causal attention without a window
-        flash = impl == "flash" and model.cfg.mla is None and not model.cfg.attn_window
+        flash = (impl == "flash" and model.cfg.mla is None and not model.cfg.attn_window
+                 and "attn" in layout_of(model.cfg)[0])
         want_launches = layers if flash else 0
         if n["flash_attention"] != want_launches or sum(n.values()) != want_launches:
             fail(f"decode {label}: prefill_fn ({impl}) launched {n}, want "
@@ -3626,11 +3916,32 @@ def hybrid_main() -> int:
                                                            kernel_table()))
 
 
+def xlstm_dg_main(name: str) -> int:
+    """``--xlstm-dg DTYPE``: phase 18 (d) alone in the compute dtype bf16
+    or f32, without the kernels' comparison."""
+    def body(torch, np, dev):
+        dtype = {"bf16": None, "f32": torch.float32}[name]
+        xlstm_deltagrad(torch, np, dev, kernel_table(), nvidia_smi(), dtype=dtype,
+                        main_path=False)
+
+    return opt_in_main(body)
+
+
+def xlstm_main() -> int:
+    """``--xlstm``: phase 18 alone."""
+    return opt_in_main(lambda torch, np, dev: xlstm_phase(torch, np, dev,
+                                                          kernel_table()))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--hybrid"]:
         sys.exit(hybrid_main())
     if sys.argv[1:2] == ["--hybrid-dg"] and len(sys.argv) == 3:
         sys.exit(hybrid_dg_main(sys.argv[2]))
+    if sys.argv[1:] == ["--xlstm"]:
+        sys.exit(xlstm_main())
+    if sys.argv[1:2] == ["--xlstm-dg"] and len(sys.argv) == 3:
+        sys.exit(xlstm_dg_main(sys.argv[2]))
     if sys.argv[1:2] == ["--moe-dg"] and len(sys.argv) == 3:
         sys.exit(moe_dg_main(sys.argv[2]))
     if sys.argv[1:2] == ["--mla-dg"] and len(sys.argv) == 3:

@@ -1,12 +1,12 @@
 """The model configuration, for the GQA token decoders, the MoE family,
-multi-head latent attention (MLA) and the Mamba2 hybrid stack.
+multi-head latent attention (MLA), the Mamba2 hybrid stack and xLSTM.
 
 The port's copy of the JAX package's ``configs/base.py``: `ModelConfig`,
-`MLAConfig`, `MoEConfig` and `SSMConfig` with the same field names and
-defaults (tests hold them field by field against the reference's
-entries).  The fields of the other families (xLSTM, enc-dec, frontends)
-wait for the model families that read them; `models.transformer.layout_of`
-raises for a config that needs them.
+`MLAConfig`, `MoEConfig`, `SSMConfig` and `XLSTMConfig` with the same
+field names and defaults (tests hold them field by field against the
+reference's entries).  The fields of the encoder-decoder family and its
+frontend wait for the family that reads them;
+`models.transformer.layout_of` raises for a config that needs them.
 """
 
 from __future__ import annotations
@@ -53,9 +53,16 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class XLSTMConfig:
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 1.3333
+    conv_kernel: int = 4  # read by nothing, in the reference as here
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm | moe | hybrid (the token decoders ported) | simple
+    family: str  # dense | vlm | moe | hybrid | ssm (the token decoders ported) | simple
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,7 +71,7 @@ class ModelConfig:
     vocab: int
     d_head: int = 0  # 0 -> d_model // n_heads
     attention: str = "gqa"  # gqa | mla
-    mlp: str = "swiglu"  # swiglu | relu_sq | gelu | moe
+    mlp: str = "swiglu"  # swiglu | relu_sq | gelu | moe | none
     qk_norm: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
@@ -72,8 +79,9 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     # repeating block pattern of a hybrid stack, e.g. ("mamba2",) * 5 +
-    # ("attn_shared",); None: n_layers x ("attn",)
+    # ("attn_shared",) or ("mlstm", "slstm"); None: n_layers x ("attn",)
     layout_unit: Optional[Tuple[str, ...]] = None
     attn_window: int = 0  # sliding window of attention layers; 0 = full
     frontend: str = "tokens"
@@ -88,7 +96,7 @@ class ModelConfig:
         """A tiny same-family config for CPU tests (the reference's
         defaults: a dense stack, for MLA ranks 32 / 16 and head dims of 8,
         for MoE 8 experts, top-2, for an SSM d_state, head_dim and chunk
-        16, and a hybrid stack cut to one unit), with `overrides` on
+        16, and a hybrid or xLSTM stack cut to one unit), with `overrides` on
         top."""
         small = dict(
             n_layers=min(self.n_layers, 2),

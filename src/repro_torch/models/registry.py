@@ -1,7 +1,8 @@
 """The model facade: init, loss, decode and objective of a configuration.
 
 The port's copy of the JAX package's ``models/registry.py`` for the GQA
-token decoders, the MoE family, MLA and the Mamba2 hybrid (Zamba2), and
+token decoders, the MoE family, MLA, the Mamba2 hybrid (Zamba2) and
+xLSTM, and
 the bridge that carries the JAX LM's weights across: `params_from_jax`
 takes the reference's nested parameter tree (as numpy; a hybrid's
 ``shared`` block and every unit position ``u{pos}`` included) and gives
@@ -53,9 +54,10 @@ class Model:
         return transformer.prefill(params, batch, self.cfg, **kw)
 
     def cache_init(self, batch: int, seq: int, device=None):
-        """Empty decode caches (`transformer.init_caches`: KV, latent or
-        Mamba2 states, per unit position) on `device` (None: the card;
-        raises without one)."""
+        """Empty decode caches (`transformer.init_caches`: KV, latent,
+        Mamba2 conv and SSM states, or xLSTM states (an mLSTM block's C, n
+        and m, an sLSTM block's c, n, h and m), per unit position) on
+        `device` (None: the card; raises without one)."""
         from repro_torch.core.engine import resolve_device
         return transformer.init_caches(self.cfg, batch, seq,
                                        device=resolve_device(device))

@@ -2,10 +2,11 @@
 
 The port's copy of the JAX package's ``models/transformer.py`` for the GQA
 token decoders (InternLM2 and its kind), the MoE family (Qwen-MoE,
-Moonlight), multi-head latent attention (MiniCPM3) and the Mamba2 hybrid
-(Zamba2).  A model is ``n_units`` repeats of a unit of blocks
+Moonlight), multi-head latent attention (MiniCPM3), the Mamba2 hybrid
+(Zamba2) and xLSTM.  A model is ``n_units`` repeats of a unit of blocks
 (`layout_of`): one attention block for the dense stacks, five ``mamba2``
-blocks and one ``attn_shared`` block for Zamba2.  Parameters are one
+blocks and one ``attn_shared`` block for Zamba2, an ``mlstm`` and an
+``slstm`` block for xLSTM.  Parameters are one
 `FlatParams` keyed by the reference's key paths: ``embed``,
 ``final_norm/scale``, ``lm_head``; for each unit position ``u{pos}`` its
 blocks' weights stacked over the units on a leading axis, an attention
@@ -15,7 +16,11 @@ for MLA, and ``u0/mlp/{w_down,w_gate,w_up}`` for a dense FFN or
 ``u0/mlp/{router,shared/{w_down,w_gate,w_up},shared_gate,w_down,w_gate,
 w_up}`` for an MoE one, a Mamba2 block's as ``u0/ln1/scale`` and
 ``u0/mixer/{a_log,conv_b,conv_w,d_skip,dt_bias,out_norm/scale,w_in,
-w_out}`` (no FFN); and an ``attn_shared`` position's one set of attention
+w_out}`` (no FFN), an mLSTM block's as ``u0/ln1/scale`` and
+``u0/mixer/{cell_norm/scale,gate_bias,w_down,w_gates,w_k,w_q,w_up,w_v,
+w_z}``, an sLSTM block's as ``u1/ln1/scale`` and ``u1/mixer/{bias,
+cell_norm/scale,mlp_down,mlp_up,r,w_in}`` (no FFN either: each carries
+its own up-projection); and an ``attn_shared`` position's one set of attention
 block weights under ``shared/`` (no stack), used by every unit.  The flat
 vector is the reference's ``ravel_pytree`` of its parameter tree.  The
 reference scans over the units; the port loops over them, and inside each
@@ -30,8 +35,13 @@ Forward flavours, as in the reference:
   * `decode_step`: one token against the caches of `init_caches`, one per
     unit position stacked over the units (an attention block's KV cache,
     an MLA block's latent cache (`models.mla`), a Mamba2 block's conv and
-    SSM states (`models.mamba2`), and for ``attn_shared`` a KV cache per
-    occurrence, ``min(seq, attn_window)`` slots each).
+    SSM states (`models.mamba2`), an mLSTM block's matrix memory and an
+    sLSTM block's scalar states (`models.xlstm`), and for ``attn_shared``
+    a KV cache per occurrence, ``min(seq, attn_window)`` slots each).
+
+An mLSTM block trains and prefills with the chunkwise-parallel form at
+the reference's chunk of 256 (`xlstm.mlstm_chunked`), an sLSTM block with
+a loop over time; each decodes one token with its recurrent step.
 
 An MoE FFN routes each token group under its own capacity
 (`models.moe`): the batch's tokens in `lm_loss` and `prefill`, each row's
@@ -60,23 +70,27 @@ from repro_torch.models.mamba2 import (mamba2_apply, mamba2_cache_init,
 from repro_torch.models.mla import (mla_apply, mla_cache_init, mla_decode,
                                     mla_init)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.xlstm import (mlstm_cache_init, mlstm_chunked,
+                                      mlstm_init, mlstm_step, slstm_apply,
+                                      slstm_cache_init, slstm_init, slstm_step,
+                                      xlstm_param_shapes)
 from repro_torch.utils.tree import FlatParams, flatten_nested, nested
 
 
 # what waits for which slice: ROADMAP.md queue 1 item 9, in order
 _NOT_PORTED = {
-    "xlstm": "xLSTM (item 9d)",
     "encdec": "the encoder-decoder family and its frame frontend (item 9e)",
 }
-_BLOCKS = {"attn", "attn_shared", "mamba2"}  # the block kinds ported
+_BLOCKS = {"attn", "attn_shared", "mamba2", "mlstm", "slstm"}  # the kinds ported
+_RECURRENT = ("mamba2", "mlstm", "slstm")  # blocks of ln1 and a mixer, no FFN
 
 
 def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
     """(unit, n_units) of a token decoder whose unit is made of attention
     blocks (GQA or MLA; ``attn_shared`` for one set of weights shared by
-    every unit) and Mamba2 blocks, whatever its family label (the
-    reference's `layout_of` looks only at the unit), with a dense or an
-    MoE FFN; raises for every other model."""
+    every unit), Mamba2 blocks and mLSTM and sLSTM blocks, whatever its
+    family label (the reference's `layout_of` looks only at the unit),
+    with a dense or an MoE FFN; raises for every other model."""
     unit = tuple(cfg.layout_unit) if cfg.layout_unit else ("attn",)
     if cfg.family == "audio" or cfg.frontend != "tokens":
         missing = "encdec"
@@ -90,8 +104,9 @@ def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
     elif "mamba2" in unit and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: unit {unit} with ssm None; a mamba2 "
                          "block takes its SSMConfig")
-    elif {"mlstm", "slstm"} & set(unit):
-        missing = "xlstm"
+    elif {"mlstm", "slstm"} & set(unit) and cfg.xlstm is None:
+        raise ValueError(f"{cfg.name}: unit {unit} with xlstm None; an mlstm "
+                         "or slstm block takes its XLSTMConfig")
     elif set(unit) <= _BLOCKS and cfg.attention in ("gqa", "mla"):
         if cfg.n_layers % len(unit):
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
@@ -121,9 +136,11 @@ def _stacked(unit) -> Tuple[int, ...]:
 def _block_init(kind: str, generator: torch.Generator,
                 cfg: ModelConfig) -> Dict[str, Any]:
     dev = generator.device
-    if kind == "mamba2":
-        return {"ln1": rmsnorm_init(cfg.d_model, dev),
-                "mixer": mamba2_init(generator, cfg.d_model, cfg.ssm)}
+    if kind in _RECURRENT:
+        mixer = (mamba2_init(generator, cfg.d_model, cfg.ssm) if kind == "mamba2" else
+                 (mlstm_init if kind == "mlstm" else slstm_init)(
+                     generator, cfg.d_model, cfg.n_heads, cfg.xlstm))
+        return {"ln1": rmsnorm_init(cfg.d_model, dev), "mixer": mixer}
     p: Dict[str, Any] = {"ln1": rmsnorm_init(cfg.d_model, dev),
                          "ln2": rmsnorm_init(cfg.d_model, dev),
                          "mixer": (mla_init(generator, cfg.d_model, cfg.n_heads,
@@ -174,9 +191,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> FlatParams:
 def _block_shapes(kind: str, cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """One block's leaf shapes, by key path inside the block."""
     d, hd = cfg.d_model, cfg.head_dim
-    if kind == "mamba2":
-        return {"ln1/scale": (d,), **{f"mixer/{k}": v for k, v in
-                                      mamba2_param_shapes(d, cfg.ssm).items()}}
+    if kind in _RECURRENT:
+        mixer = (mamba2_param_shapes(d, cfg.ssm) if kind == "mamba2" else
+                 xlstm_param_shapes(d, cfg.n_heads, cfg.xlstm)[kind])
+        return {"ln1/scale": (d,), **{f"mixer/{k}": v for k, v in mixer.items()}}
     shapes = {"ln1/scale": (d,), "ln2/scale": (d,)}
     if cfg.mla:
         m, H = cfg.mla, cfg.n_heads
@@ -303,6 +321,10 @@ def _block_apply(kind: str, p, x: torch.Tensor, cfg: ModelConfig,
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "mamba2":
         return x + mamba2_apply(p["mixer"], h, cfg.d_model, cfg.ssm), None
+    if kind == "mlstm":
+        return x + mlstm_chunked(p["mixer"], h, cfg.n_heads), None
+    if kind == "slstm":
+        return x + slstm_apply(p["mixer"], h, cfg.n_heads), None
     if cfg.mla:
         h = mla_apply(p["mixer"], h, n_heads=cfg.n_heads, cfg=cfg.mla,
                       rope_theta=cfg.rope_theta, window=cfg.attn_window)
@@ -427,6 +449,11 @@ def _block_cache_init(kind: str, cfg: ModelConfig, batch: int, seq: int,
                       device=None) -> Dict[str, torch.Tensor]:
     if kind == "mamba2":  # f32 states, the reference's default
         return mamba2_cache_init(batch, cfg.d_model, cfg.ssm, device=device)
+    if kind == "mlstm":  # f32 states, the stabiliser at -inf
+        return mlstm_cache_init(batch, cfg.d_model, cfg.n_heads, cfg.xlstm,
+                                device=device)
+    if kind == "slstm":
+        return slstm_cache_init(batch, cfg.d_model, cfg.n_heads, device=device)
     if cfg.mla:  # the latent cache: bf16, as the reference's default
         return mla_cache_init(batch, seq, cfg.mla, device=device)
     win = cfg.attn_window
@@ -439,8 +466,12 @@ def _block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ModelConfig):
     """One block on the step's x (B, 1, d); an MoE FFN routes the step's B
     tokens as one group, as the reference's ``moe_apply`` on (B, 1, d)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if kind == "mamba2":
-        out, cache = mamba2_decode(p["mixer"], h, cache, cfg.d_model, cfg.ssm)
+    if kind in _RECURRENT:
+        if kind == "mamba2":
+            out, cache = mamba2_decode(p["mixer"], h, cache, cfg.d_model, cfg.ssm)
+        else:
+            step = mlstm_step if kind == "mlstm" else slstm_step
+            out, cache = step(p["mixer"], h, cache, cfg.n_heads)
         return x + out, cache
     if cfg.mla:
         h, cache = mla_decode(p["mixer"], h, cache, n_heads=cfg.n_heads,
@@ -463,8 +494,11 @@ def init_caches(cfg: ModelConfig, batch: int, seq: int,
     (n_units,) int32}}``, for MLA ``{"u0": {c_kv: (n_units, B, S,
     kv_lora), k_rope: (n_units, B, S, rope) bf16, len}}``, for a Mamba2
     position ``{conv: (n_units, B, d_conv - 1, conv_dim), ssm: (n_units,
-    B, H, head_dim, d_state)}`` f32, and for the shared attention one KV
-    cache per occurrence, of ``min(seq, attn_window)`` slots."""
+    B, H, head_dim, d_state)}`` f32, for an mLSTM position ``{C: (n_units,
+    B, H, dh, dh), n: (n_units, B, H, dh), m: (n_units, B, H)}`` f32, for
+    an sLSTM position ``{c, n, h, m: (n_units, B, H, dh)}`` f32 (each m at
+    -inf), and for the shared attention one KV cache per occurrence, of
+    ``min(seq, attn_window)`` slots."""
     unit, n_units = layout_of(cfg)
     caches = {}
     for pos, kind in enumerate(unit):
@@ -483,7 +517,7 @@ def decode_step(params: Mapping[str, Any], batch, caches, cfg: ModelConfig,
     reference, and leaves already in `dtype` are used as they are (so a
     caller may cast once).  Each block's cache leaves but ``len`` are
     written in place (`layers.gqa_decode`, `mla.mla_decode`,
-    `mamba2.mamba2_decode`)."""
+    `mamba2.mamba2_decode`, `xlstm.mlstm_step`, `xlstm.slstm_step`)."""
     unit, n_units = layout_of(cfg)
     p = cast_params(nested(params), dtype)
     x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
@@ -511,7 +545,8 @@ def prefill(params: Mapping[str, Any], batch, cfg: ModelConfig, *,
     under ``use_attention_impl("flash")`` unless the block attends in a
     window (Zamba2's shared block); an MLA block's is blockwise whatever
     the switch, as in the reference.  A Mamba2 block runs the chunked
-    SSD."""
+    SSD, an mLSTM block the chunkwise-parallel form, an sLSTM block its
+    loop over time."""
     p = cast_params(nested(params), dtype)
     x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
     h, _ = forward_hidden(p, x, cfg, remat=False)

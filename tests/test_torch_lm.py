@@ -150,8 +150,10 @@ def test_count_params_at_full_width():
 
 
 def test_layout_rejects_families_not_ported():
-    cfg = dataclasses.replace(get_config("internlm2-1.8b"), family="ssm",
-                              layout_unit=("mlstm", "slstm"), mlp="none")
+    """The encoder-decoder family (item 9e) is the one left; xLSTM (9d),
+    once refused here, is taken (tests/test_torch_xlstm.py)."""
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), family="audio",
+                              frontend="frames", mlp="gelu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layout_of(cfg)
 

@@ -236,8 +236,8 @@ def test_layout_takes_the_hybrid_and_checks_its_config():
         tt.layout_of(dataclasses.replace(cfg, ssm=None))
     with pytest.raises(ValueError, match="whole units"):
         tt.layout_of(dataclasses.replace(cfg, n_layers=80))
-    # xLSTM stays refused
-    with pytest.raises(NotImplementedError, match="item 9d"):
+    # an xLSTM unit takes its XLSTMConfig (tests/test_torch_xlstm.py)
+    with pytest.raises(ValueError, match="XLSTMConfig"):
         tt.layout_of(dataclasses.replace(cfg, layout_unit=("mlstm", "slstm")))
 
 
