@@ -132,7 +132,23 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      the CPU), with the replay kernels' launches and those kernels against
      their plain versions at that p, the reduced model's f32 replay on the
      card against the port's CPU run (counters, parameters and d_ui/d_us),
-     and the train CLI at that cut resumed from step 2, held bitwise.
+     and the train CLI at that cut resumed from step 2, held bitwise;
+ 19. the encoder-decoder family, whisper-large-v3 at its published widths:
+     32 encoder and 16 of the 32 decoder layers (cut by the script's time)
+     encode 1500 frames once, fill the cross caches and decode 128 + 64
+     tokens through `generate` (tokens/s, ms per step
+     against the step's byte bound, launches and busy share, memory, the
+     cross caches' bytes), `prefill_fn` (one flash launch per decoder
+     layer under flash) against the stepped decode in bf16 and f32,
+     `decode_main`'s audio branch (64 zero cross K/V slots, as the
+     reference's CLI), the card against the port's CPU run (full width at
+     1 + 1 layers in bf16, the reduced model in f32), train -> BaseL ->
+     replay on phase 9's recipe and main path at 2 + 2 layers (rows of
+     1500 frames and 448 tokens, per-block remat, flash on the decoder's
+     self-attention), its d_ui/d_us against 1, with the replay kernels'
+     and flash's launches and those kernels against their plain versions
+     at that p, and the train CLI at that cut resumed from step 2, held
+     bitwise.
 
 Each train-CLI resume writes one checkpoint (the first one due) and reads
 it: both runs are cut before their last step's write, so the CLI is timed
@@ -170,6 +186,10 @@ runs phase 18 alone, and
     python3 chip_smoke.py --xlstm-dg f32
 
 phase 18 (d) alone in f32 compute (or bf16), recorded against d_us.
+
+    python3 chip_smoke.py --whisper
+
+runs phase 19 alone.
 
     python3 chip_smoke.py --lm-blockwise
 
@@ -214,7 +234,9 @@ REPEATS = 5  # timed BaseL / replay runs at full width
 # (S = 1, 65, 127; causal S = 512 at G = 1 and 8; non-causal S = 256), the
 # MoE family's (phase 15: MHA, 16 heads of 128, G = 1) in prefill_fn of
 # qwen2-moe (16, 128) and moonshot (4, 32) and in the objective and the
-# train step (32, 512), and the LM's, last
+# train step (32, 512), Whisper's decoder self-attention (phase 19: 20
+# heads of 64, G = 1; 448 tokens, not whole 128-row blocks) in the
+# objective (32, 448) and in prefill_fn (16, 128), and the LM's, last
 FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
                 (2, 100, 4, 1, 64, True), (1, 128, 2, 2, 128, False),
                 (1, 64, 4, 4, 16, True), (3, 1, 4, 2, 64, True),
@@ -222,7 +244,9 @@ FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
                 (1, 512, 4, 4, 64, True), (2, 512, 8, 1, 128, True),
                 (2, 256, 4, 2, 64, False), (16, 128, 16, 16, 128, True),
                 (4, 32, 16, 16, 128, True), (32, 512, 16, 16, 128, True),
+                (32, 448, 20, 20, 64, True), (16, 128, 20, 20, 64, True),
                 (32, 512, 16, 8, 128, True)]
+WHISPER_FLASH = (32, 448, 20, 20, 64)  # phase 3's second flash reading
 FLASH_TOL = {"f32": 2e-5, "bf16": 3e-2}  # the outer, elementwise bar
 # the LM phase: InternLM2-1.8B at its published widths, 2 of its 24 layers
 LM = dict(layers=2, docs=128, seq=512, batch=32, steps=12, lr=0.01, seed=5,
@@ -305,14 +329,15 @@ MOE_PARITY = dict(batch=2, prompt=8, gen=8, x=(2, 64, 2048), tol=1e-4)
 MOE_LM = dict(layers=1, n_params=1_192_886_272, steps=6, burn_in=2, window=1)
 MOE_TRAIN = dict(batch=8, seq=512, steps=4)
 # phase 16: multi-head latent attention, minicpm3-4b at its published widths
-# (40 heads, qk 64 + 32, v 64, ranks 768 / 256).  (a) `decode_main` at 31 of
-# its 62 layers (p = 2,318,979,584: 9.28 GB f32 cast once to 4.64 GB bf16; cut
-# by the script's time since phase 18 came in: all 62, p = 4,261,902,848,
-# decoded in the runs that PERF.md section 5 cites) on phase 14 (a)'s shape; (b) `prefill_fn` (the expanded form) against the stepped
+# (40 heads, qk 64 + 32, v 64, ranks 768 / 256).  (a) `decode_main` at 8 of
+# its 62 layers (p = 877,455,872: 3.51 GB f32 cast once to 1.75 GB bf16; cut
+# by the script's time: to 31 layers when phase 18 came in, to 8 when phase
+# 19 did; all 62, p = 4,261,902,848, and 31 decoded in the runs that PERF.md
+# section 5 cites) on phase 14 (a)'s shape; (b) `prefill_fn` (the expanded form) against the stepped
 # absorbed decode; (c) card against CPU at full width and 2 layers (bf16), and
 # the reduced model in f32; (d) DeltaGrad on phase 9's recipe and main path at
 # 2 of 62 layers (the one cut; p = 501,406,208); (e) the train CLI at (d)'s cut
-MLA_DECODE = dict(layers=31, batch=16, prompt=128, gen=64, n_params=2_318_979_584)
+MLA_DECODE = dict(layers=8, batch=16, prompt=128, gen=64, n_params=877_455_872)
 MLA_LM = dict(n_params=501_406_208)
 # in bf16 compute the replay's d_ui/d_us on this recipe falls either side of
 # 1 by the draw, in both packages: the bf16 gradient's rounding enters the
@@ -322,17 +347,18 @@ MLA_BF16_MISS = "PERF.md section 7, ROADMAP queue 3"
 # phase 17: the Mamba2 hybrid, zamba2-7b at its published widths (d_model
 # 3584, 13 units of five Mamba2 blocks and one shared attention block, 32
 # heads of 112 attending in a 4096 window, SSM d_state 64, head_dim 64, chunk
-# 128).  (a) `decode_main` at 7 of the 13 units, 42 of 78 layers (p =
-# 3,164,139,888: 12.66 GB f32 cast once to 6.33 GB bf16; cut by the script's
-# time since phase 18 came in: all 78, p = 5,503,481,808, decoded in the runs
-# that PERF.md section 5 cites) on phase 14 (a)'s shape; (b) `prefill_fn`
+# 128).  (a) `decode_main` at 2 of the 13 units, 12 of 78 layers (p =
+# 1,214,688,288: 4.86 GB f32 cast once to 2.43 GB bf16; cut by the script's
+# time: to 7 units when phase 18 came in, to 2 when phase 19 did; all 78, p =
+# 5,503,481,808, and 42 decoded in the runs that PERF.md section 5 cites) on
+# phase 14 (a)'s shape; (b) `prefill_fn`
 # (chunked SSD, windowed blockwise attention) against the stepped decode;
 # (c) card against CPU at full width and 6 layers (bf16), and the reduced
 # hybrid in f32; (d) DeltaGrad on phase 9's recipe and main path at 1 of 13
 # units (6 blocks, p = 824,797,968), cut by host memory: a step's f32 history
 # is 6.6 GB, so T 10 and j0 4 (phase 9's T 12 would hold 79 GB of the 96 GiB
 # host; j0 4 keeps four approx steps at T0 4); (e) the train CLI at (d)'s cut
-HYBRID_DECODE = dict(layers=42, batch=16, prompt=128, gen=64, n_params=3_164_139_888)
+HYBRID_DECODE = dict(layers=12, batch=16, prompt=128, gen=64, n_params=1_214_688_288)
 # the card holds the replay only with the objective checkpointing each
 # block's activations (`remat`: a Mamba2 block's chunked SSD keeps ~6-7 GB
 # of f32 intermediates for the backward pass at B 32, S 512) and windows of
@@ -367,9 +393,10 @@ HYBRID_DG_BAR = {"bf16": "both packages miss in bf16 by the draw on the CPU, "
                          "PERF.md section 6", "f32": True}
 # phase 18: xLSTM, xlstm-350m at its published widths (d_model 1024, 12 units
 # of an mLSTM block (d_inner 2048, 4 heads of 512) and an sLSTM block (4 heads
-# of 256, a gated MLP of 1365), vocab 50304).  (a) `decode_main` at all 24
-# layers (p = 443,057,248: 1.77 GB f32 cast once to 0.89 GB bf16) on phase 14
-# (a)'s shape; (b) `prefill_fn` (the chunked mLSTM, the sLSTM's loop over
+# of 256, a gated MLP of 1365), vocab 50304).  (a) `decode_main` at 8 of the
+# 24 layers (p = 216,368,160: 0.87 GB f32 cast once to 0.43 GB bf16; cut by
+# the script's time when phase 19 came in; all 24, p = 443,057,248, decoded in
+# the runs that PERF.md section 5 cites) on phase 14 (a)'s shape; (b) `prefill_fn` (the chunked mLSTM, the sLSTM's loop over
 # time) against the stepped decode; (c) card against CPU at full width and 2
 # layers (bf16), and the reduced model in f32; (d) DeltaGrad on phase 9's
 # recipe and main path at 2 of the 24 layers (cut by time, below; the host
@@ -377,7 +404,7 @@ HYBRID_DG_BAR = {"bf16": "both packages miss in bf16 by the draw on the CPU, "
 # reduced model's f32 replay on the card against the port's CPU run; (e) the
 # train CLI at (d)'s cut, 4 steps resumed from step 2 (`XLSTM_TRAIN`: a step
 # takes ~1 s)
-XLSTM_DECODE = dict(batch=16, prompt=128, gen=64, n_params=443_057_248)
+XLSTM_DECODE = dict(layers=8, batch=16, prompt=128, gen=64, n_params=216_368_160)
 # (d) is cut by the script's time budget to 2 of the 24 layers (1 of 12 units,
 # p = 131,359,752): the sLSTM's loop over time launches 26.9 kernels a step in
 # the forward pass and 70.1 more in the backward (PERF.md section 5), so a
@@ -427,6 +454,58 @@ XLSTM_DG_BAR = {"bf16": "both packages miss on the CPU in bf16, PERF.md section 
 # draws on the CPU)
 XLSTM_REPLAY_PARITY = dict(docs=32, seq=32, batch=8, steps=10, lr=0.001,
                            removed=(3, 11, 25), period=2, burn_in=4, ratio=1e-3)
+# phase 19: the encoder-decoder family, whisper-large-v3 at its published
+# widths (d_model 1280, 20 heads of 64, d_ff 5120, GELU, vocab 51866, 32
+# encoder + 32 decoder layers; the conv frontend a stub of precomputed
+# frames).  (a) all 32 encoder layers and 16 of the 32 decoder layers (p =
+# 1,181,498,880: 4.73 GB f32 cast once to 2.36 GB bf16; the decoder cut by
+# the script's time: all 32 + 32, p = 1,600,990,720, decoded in the runs
+# that PERF.md section 5 cites), 1500 frames N(0, 1) encoded once and the
+# cross caches filled (16 layers x B 16 x 1500 x 20 x 64 x bf16, K and V),
+# then phase 14 (a)'s 128 + 64 greedy tokens; (b) `prefill_fn` against the stepped decode
+# in bf16 and f32; (c) card against CPU at full width and 1 + 1 layers
+# (bf16), and the reduced model in f32; (d) DeltaGrad on phase 9's recipe and
+# main path at 2 + 2 of the 32 + 32 layers (p = 224,542,720), rows of 1500
+# frames (Whisper's post-conv count for 30 s) and 448 tokens (its text
+# context), with per-block remat (the encoder's blockwise scores at B 32 are
+# ~2 GB a KV block in f32), so each gradient runs the decoder's flash twice,
+# forward and recompute; (e) the train CLI at (d)'s cut, 4 steps of 448
+# tokens (and 448 frames) resumed from step 2
+WHISPER_DECODE = dict(layers=16, batch=16, frames=1500, prompt=128, gen=64,
+                      n_params=1_181_498_880, cross_bytes=1_966_080_000)
+WHISPER_LM = dict(layers=2, n_params=224_542_720, frames=1500, seq=448, remat=True,
+                  flash_per_forward=4)
+WHISPER_TRAIN = dict(batch=8, seq=448, steps=4, every=2)
+WHISPER_PARITY_FRAMES = 1500
+# the reduced model's f32 decode, card against CPU: its self and cross
+# caches are bf16, and a value near a bf16 tie rounds the other way on the
+# other device.  On the CPU alone, the port's init (seeds 0-3) scaled by 1 +
+# 1.2e-7 N(0, 1), f32 rounding's size, moves these logits by 9.9e-05 to
+# 2.497e-03 (seed 0, the card's draw: 1.04e-03 to 1.06e-03); the port against
+# the JAX package, same weights: 5.1e-04 to 5.2e-04.  Held at twice the worst
+WHISPER_F32_TOL = 5e-3
+# `prefill_fn` against the stepped decode of the same frames and prompt,
+# against both packages' own pairs on the CPU at the published widths, B 16,
+# 1500 frames and a 128 prompt (`python tests/test_torch_encdec_slice.py
+# prefill,2,B16 prefill,8,B16`): in bf16 JAX max / mean 3.13171e-2 /
+# 4.67466e-3 at 2 + 2 layers and 3.78170e-2 / 6.10841e-3 at 8 + 8 (the port
+# within 2 % of each), growing ~1.25x for 4x the depth, so ~4.7e-2 / 7.6e-3
+# at 32 + 32 (the card read 5.86e-2 / 9.49e-3 there under flash, PERF.md
+# section 6), held at about twice that; in f32 (both caches bf16, the
+# reference's design) JAX 4.13096e-3 / 6.46049e-4 at 2 + 2 and 1.96576e-3 /
+# 3.23451e-4 at 8 + 8; on the first 32 tokens (the f32 check's, cut by time)
+# JAX 6.90114e-3 / 1.00193e-3 at 2 + 2 (the port 6.91736e-3 / 1.00267e-3),
+# the gap shrinking with depth: held at 1e-2 / 1.5e-3
+WHISPER_PREFILL_TOL = dict(max=0.1, mean=0.015)
+WHISPER_PREFILL_F32 = dict(prompt=32, max=1e-2, mean=1.5e-3)
+# 19 (d)'s d_ui < d_us against both packages on the CPU over 8 draws of the
+# init, frames and documents at d_model 128, 64 frames, 32 tokens (`python
+# tests/test_torch_encdec_slice.py 128,64,32,bf16,8 128,64,32,f32,8`): in
+# bf16, the compute dtype of (d), both meet it in all 8 draws (JAX
+# 0.041-0.177, the port 0.043-0.703), so it is held; in f32 both meet it in
+# 7 draws and diverge alike in one (63.307 / 63.309, the counters equal)
+WHISPER_DG_BAR = {"bf16": True, "f32": "both packages miss alike in 1 of 8 f32 "
+                                      "draws on the CPU, PERF.md section 6"}
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -548,6 +627,22 @@ def kernel_table() -> dict:
                                 replaces="src/repro/kernels/flash_attention/kernel.py:77"),
     }
 
+def background(fn, *args, **kw):
+    """fn(*args, **kw) started in a thread of its own: its future."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(fn, *args, **kw)
+    pool.shutdown(wait=False)  # the thread runs on to the end of fn
+    return future
+
+
+def timed(fn, *args, **kw):
+    """(fn(*args, **kw), its wall time in s)."""
+    t0 = time.perf_counter()
+    return fn(*args, **kw), time.perf_counter() - t0
+
+
 def mem_available_gb() -> float:
     for line in Path("/proc/meminfo").read_text().splitlines():
         if line.startswith("MemAvailable:"):
@@ -573,7 +668,8 @@ def main() -> int:
     from repro_torch.configs.paper_mlp import CONFIG
     from repro_torch.core import deltagrad as dg
     from repro_torch.core.history import HistoryMeta
-    from repro_torch.data.synthetic import multiclass_classification
+    from repro_torch.data.synthetic import (binary_classification,
+                                            multiclass_classification)
     from repro_torch.kernels import _build
     from repro_torch.kernels.dequant_update.ops import dequant_sub, dequant_update
     from repro_torch.kernels.dequant_update.ref import (dequant_ref,
@@ -634,6 +730,12 @@ def main() -> int:
     kernels = kernel_table()
     for k in kernels.values():
         k["max_abs_err"] = 0.0
+
+    # phase 10's data, the rcv1.binary shape (~27 s of numpy's RNG on the
+    # host), is drawn in a background thread while phases 2-9 run on the
+    # card: numpy's bulk draws, its cast and the BLAS product release the GIL
+    rcv1_data = background(timed, binary_classification, LOGREG["n"], LOGREG["d"],
+                           seed=LOGREG["seed"])
 
     # -- 2. each kernel against its plain version ------------------------------
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -908,13 +1010,29 @@ def main() -> int:
 
     # flash at the LM's shape, bf16; the bound counts the causal half of
     # both products and each operand read once, o written once
+    def flash_operands(B, S, H, Hkv, D):
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        return (q, k, v, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                2 * 2 * B * H * S * S * D / 2, 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D))
+
+    # Whisper's decoder self-attention in the objective: a second reading
+    q, k, v, qt, kt, vt, wf_flops, wf_bytes = flash_operands(*WHISPER_FLASH)
+    wf = dict(ms=graph_ms(torch, lambda: attention(q, k, v, causal=True)),
+              plain_ms=graph_ms(torch, lambda: attention_ref(qt, kt, vt, causal=True)),
+              library_ms=graph_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True)))
+    wf_bound = bound_ms(wf_bytes, wf_flops, PEAK_BF16_FLOP_PER_S)
+    print(f"time flash_attention B={WHISPER_FLASH[0]} S={WHISPER_FLASH[1]} "
+          f"H={WHISPER_FLASH[2]} Hkv={WHISPER_FLASH[3]} D={WHISPER_FLASH[4]} causal "
+          f"bf16 (whisper's decoder; CUDA graph, L2-warm): kernel_ms={wf['ms']:.5f} "
+          f"plain_ms={wf['plain_ms']:.5f} library_ms(sdpa)={wf['library_ms']:.5f} "
+          f"bound_ms={wf_bound[0]:.5f} ({wf_bound[1]}: {wf_bytes / 1e6:.1f} MB, "
+          f"{wf_flops / 1e9:.2f} GFLOP) achieved_tflops={wf_flops / wf['ms'] / 1e9:.2f}",
+          flush=True)
     B, S, H, Hkv, D, _ = FLASH_SHAPES[-1]
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    fa_flops = 2 * 2 * B * H * S * S * D / 2
-    fa_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+    q, k, v, qt, kt, vt, fa_flops, fa_bytes = flash_operands(B, S, H, Hkv, D)
     k_fa = kernels["flash_attention"]
     k_fa["ms"] = graph_ms(torch, lambda: attention(q, k, v, causal=True))
     k_fa["plain_ms"] = graph_ms(torch, lambda: attention_ref(qt, kt, vt, causal=True))
@@ -1241,7 +1359,7 @@ def main() -> int:
 
     # -- 10. logistic regression at the RCV1 shape; 11. Algorithm 3 ---------------
     gc_collect()
-    rcv1 = logreg_phase(torch, np, dev, kernels)
+    rcv1 = logreg_phase(torch, np, dev, kernels, rcv1_data)
     gc_collect()
     online_phase(torch, np, dev, kernels)
 
@@ -1272,6 +1390,10 @@ def main() -> int:
     # -- 18. xLSTM ------------------------------------------------------------------------------
     gc_collect()
     xlstm_phase(torch, np, dev, kernels)
+
+    # -- 19. the encoder-decoder family ---------------------------------------------------------
+    gc_collect()
+    whisper_phase(torch, np, dev, kernels)
 
     # -- results ---------------------------------------------------------------------
     if FAILURES:
@@ -1376,9 +1498,10 @@ def replay_card_cpu(torch, np, dev, label, obj, init, docs, meta, dgc, removed,
              f"{card[2]} against {cpu[2]}")
 
 
-def decode_cpu_parity(torch, np, dev, smi, pcfg) -> None:
+def decode_cpu_parity(torch, np, dev, smi, pcfg, fill=None) -> None:
     """The card's bf16 `generate` against the port's CPU run on the same
-    bf16 weights of `pcfg` (full width, a few layers): the logits after the
+    bf16 weights of `pcfg` (full width, a few layers; an encoder-decoder's
+    caches made by `fill` on each device): the logits after the
     prompt within `DECODE_CPU_TOL`, the greedy tokens equal before the
     first step whose top-2 margin (the margin of the logits that choose
     that step's token) is under the bar: from that step on, the two
@@ -1394,9 +1517,10 @@ def decode_cpu_parity(torch, np, dev, smi, pcfg) -> None:
     prompt = np.random.default_rng(0).integers(
         0, pcfg.vocab, size=(DECODE_PARITY["batch"], DECODE_PARITY["prompt"]),
         dtype=np.int32)
-    card = serve.generate(model, params, prompt, DECODE_PARITY["gen"], device=dev)
-    cpu = serve.generate(model, params_cpu, prompt, DECODE_PARITY["gen"],
-                         device="cpu")
+    B, P, G = DECODE_PARITY["batch"], DECODE_PARITY["prompt"], DECODE_PARITY["gen"]
+    card, cpu = (serve.generate(model, p, prompt, G, device=where, caches=None if fill is None
+                                else fill(model, p, where, B, P + G, torch.bfloat16))
+                 for p, where in ((params, dev), (params_cpu, "cpu")))
     gap = (card["prompt_logits"].cpu() - cpu["prompt_logits"]).abs()
     mx, mean = gap.max().item(), gap.mean().item()
     near = np.nonzero((card["margins"] < DECODE_CPU_TOL["max"]).any(axis=0))[0]
@@ -1636,12 +1760,14 @@ def moe_parity(torch, np, dev, smi) -> None:
     gc_collect()
 
 
-def greedy_f32(torch, model, params, prompt, gen, device):
+def greedy_f32(torch, model, params, prompt, gen, device, fill=None):
     """The stepped decode in f32 compute, greedy: (tokens, the logits after
-    the prompt and after each generated token)."""
+    the prompt and after each generated token).  `fill` (an
+    encoder-decoder's, `whisper_fill`) makes the caches."""
     B, P = prompt.shape
     toks = torch.from_numpy(prompt).to(device)
-    caches = model.cache_init(B, P + gen, device=device)
+    caches = (model.cache_init(B, P + gen, device=device) if fill is None else
+              fill(model, params, device, B, P + gen, torch.float32))
     for t in range(P):
         logits, caches = model.decode_fn(params, {"tokens": toks[:, t:t + 1]},
                                          caches, dtype=torch.float32)
@@ -1655,10 +1781,11 @@ def greedy_f32(torch, model, params, prompt, gen, device):
     return torch.cat(out, dim=1).cpu().numpy(), torch.stack(seen).cpu()
 
 
-def reduced_f32_parity(torch, np, dev, rcfg) -> tuple:
+def reduced_f32_parity(torch, np, dev, rcfg, fill=None) -> tuple:
     """The reduced model `rcfg` decoding greedily in f32 on the card and on
-    the CPU, the same weights (MOE_PARITY's batch, prompt and gen): (max
-    |gap| of the logits, greedy tokens equal)."""
+    the CPU, the same weights (MOE_PARITY's batch, prompt and gen; an
+    encoder-decoder's caches made by `fill`): (max |gap| of the logits,
+    greedy tokens equal)."""
     from repro_torch.models.registry import build
 
     B, P, G = MOE_PARITY["batch"], MOE_PARITY["prompt"], MOE_PARITY["gen"]
@@ -1666,7 +1793,7 @@ def reduced_f32_parity(torch, np, dev, rcfg) -> tuple:
     rp = rmodel.init(seed=0, device=dev)
     prompt = np.random.default_rng(0).integers(0, rcfg.vocab, size=(B, P),
                                                dtype=np.int32)
-    (tok_c, log_c), (tok_h, log_h) = (greedy_f32(torch, rmodel, p, prompt, G, where)
+    (tok_c, log_c), (tok_h, log_h) = (greedy_f32(torch, rmodel, p, prompt, G, where, fill)
                                       for p, where in ((rp, dev), (rp.to("cpu"), "cpu")))
     return (log_c - log_h).abs().max().item(), np.array_equal(tok_c, tok_h)
 
@@ -1676,7 +1803,8 @@ def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
     """15 (d): DeltaGrad on qwen2-moe-a2.7b at full width, 1 of 24 layers,
     on phase 9's recipe (bf16 compute, flash on every forward pass): the
     objective's gradient twice on one batch, then train -> BaseL -> replay
-    from a host f32 history.  Returns the registered 1-layer config.
+    from a host f32 history, on the main path the replay under the
+    profiler.  Returns the registered 1-layer config.
 
     The LM's bar d_ui < d_us is held when the replay took an approx step.
     At the main path's cut the guard rejects every one (each B v's
@@ -1748,9 +1876,13 @@ def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
     gc_collect()
     torch.cuda.reset_peak_memory_stats()
     forwards[0] = 0
+    # on the main path the one replay runs under the profiler
+    def replay():
+        return dg.deltagrad_retrain(obj, hist, docs, removed, dgc)
+
     with bv_ratios() as ratios:
-        (w_i, st), n = counted_run(kernels, lambda: dg.deltagrad_retrain(
-            obj, hist, docs, removed, dgc))
+        (w_i, st), n = counted_run(kernels, (lambda: profile_replay(
+            torch, "moe lm host/f32 replay", replay)) if main_path else replay)
     peak = torch.cuda.max_memory_allocated()
     fwd = forwards[0]
     w_u, _ = dg.baseline_retrain(obj, docs, meta, p0, removed)
@@ -1758,6 +1890,7 @@ def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
     d_ui = (w_u.flat - w_i.flat).norm().item()
     print(replay_line(f"moe lm {what} compute, f32 host", train_s, st_u, st, d_ui,
                       d_us, ratios, dgc)
+          + (" (replay_s under the profiler)" if main_path else "")
           + f" max_memory_allocated (replay)={peak} forward_passes={fwd} "
           f"launches {json.dumps(n)}; MemAvailable {mem_available_gb():.1f} GiB "
           f"with the history | {smi}", flush=True)
@@ -1785,8 +1918,6 @@ def moe_deltagrad(torch, np, dev, kernels, smi, steps=MOE_LM["steps"],
     if not main_path:
         return lcfg
     replay_kernels_at(torch, dev, MOE_LM["n_params"])
-    profile_replay(torch, "moe lm host/f32 replay",
-                   lambda: dg.deltagrad_retrain(obj, hist, docs, removed, dgc))
     del hist, obj, model
     gc_collect()
     return lcfg
@@ -2212,7 +2343,7 @@ def xlstm_phase(torch, np, dev, kernels) -> None:
     phase launches flash; the replay launches its three kernels."""
     import dataclasses as dc
 
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import get_config, register
     from repro_torch.models.registry import build
 
     t_phase = time.perf_counter()
@@ -2224,14 +2355,17 @@ def xlstm_phase(torch, np, dev, kernels) -> None:
         marks.append(time.perf_counter())
         print(f"xlstm: {part} took {marks[-1] - marks[-2]:.1f} s", flush=True)
 
-    # (a) all 24 layers; (b) the chunked prefill against the stepped decode
+    # (a) 8 of the 24 layers (XLSTM_DECODE, cut by time); (b) the chunked
+    # prefill against the stepped decode
     cfg = get_config("xlstm-350m")
-    label = f"{cfg.name} {cfg.n_layers} layers"
-    res = decode_run(torch, kernels, smi, label, cfg, XLSTM_DECODE)
-    xlstm_step_bound(smi, label, cfg, res)
-    lap("(a) decode_main at 24 layers")
-    model = build(cfg)
-    prefill_check(torch, dev, kernels, smi, label, model, res, cfg.n_layers,
+    dcfg = register(dc.replace(cfg, name=f"{cfg.name}-{XLSTM_DECODE['layers']}l",
+                               n_layers=XLSTM_DECODE["layers"]))
+    label = f"{cfg.name} {dcfg.n_layers} of {cfg.n_layers} layers"
+    res = decode_run(torch, kernels, smi, label, dcfg, XLSTM_DECODE)
+    xlstm_step_bound(smi, label, dcfg, res)
+    lap(f"(a) decode_main at {dcfg.n_layers} layers")
+    model = build(dcfg)
+    prefill_check(torch, dev, kernels, smi, label, model, res, dcfg.n_layers,
                   tol=XLSTM_PREFILL_TOL)
     prefill_f32(torch, dev, smi, label, model, res["prompt"], XLSTM_PREFILL_F32)
     lap("(b) prefill_fn")
@@ -2313,8 +2447,9 @@ def xlstm_step_bound(smi, label, cfg, res) -> None:
           f"{2 * weights / 1e9:.3f} GB, the states read and written): byte bound "
           f"{bound:.4f} ms against {res['ms_per_token']:.4f} ms a step "
           f"({res['ms_per_token'] / bound:.1f}x) | {smi}", flush=True)
-    if mem != 805_306_368:
-        fail(f"decode {label}: the mLSTM's C holds {mem} bytes, want 805306368")
+    if mem != n_units * 67_108_864:  # all 12 units: 805,306,368
+        fail(f"decode {label}: the mLSTM's C holds {mem} bytes, want "
+             f"{n_units * 67_108_864}")
 
 
 def xlstm_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
@@ -2346,6 +2481,255 @@ def hybrid_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
                            main_path=main_path, profile=main_path)
 
 
+def whisper_phase(torch, np, dev, kernels) -> None:
+    """Phase 19: the encoder-decoder family (whisper-large-v3) at its
+    published widths through the model facade's three paths, decode
+    (`encode` -> `fill_cross_caches` -> `generate`, 32 + 16 of the 32 + 32
+    layers, and `decode_main`'s audio branch), the DeltaGrad objective (train ->
+    BaseL -> replay, 2 + 2 layers) and the train CLI (2 + 2 layers), each
+    run with the launch counts zeroed just before and read after; and the
+    card against the port's CPU run.  The decoder's causal self-attention
+    takes the flash kernel on every full-sequence forward pass; the
+    encoder's bidirectional attention and the cross-attention are
+    blockwise, as in the reference."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config, register
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"whisper: MemAvailable {mem_available_gb():.1f} GiB at the start", flush=True)
+    marks = [t_phase]
+
+    def lap(part: str) -> None:  # where the phase's time goes
+        marks.append(time.perf_counter())
+        print(f"whisper: {part} took {marks[-1] - marks[-2]:.1f} s", flush=True)
+
+    # (a) the 32 encoder layers and 16 of the 32 decoder layers
+    # (WHISPER_DECODE, cut by time) against 1500 encoded frames; (b)
+    # prefill_fn against the stepped decode, bf16 and f32
+    cfg = get_config("whisper-large-v3")
+    dcfg = register(dc.replace(cfg, name=f"{cfg.name}-{WHISPER_DECODE['layers']}d",
+                               n_layers=WHISPER_DECODE["layers"]))
+    res = whisper_decode(torch, np, dev, kernels, smi, dcfg)
+    lap(f"(a) encode and decode at {dcfg.n_encoder_layers} + {dcfg.n_layers} layers")
+    whisper_prefill(torch, dev, kernels, smi, dcfg, res)
+    del res
+    gc_collect()
+    lap("(b) prefill_fn")
+    # the reference's CLI: decode_main against 64 zero cross K/V slots, at
+    # 1 + 1 layers (the CLI's audio branch; (a) is the depth's reading)
+    one = register(dc.replace(cfg, name=f"{cfg.name}-1l", n_layers=1, n_encoder_layers=1))
+    out, n = counted_run(kernels, lambda: serve.decode_main(
+        ["--arch", one.name, "--batch", "4", "--prompt-len", "16", "--gen", "8"]))
+    cross = out["params"]["dec"]["cross"]["wk"]
+    print(f"decode {one.name} (decode_main's audio branch, 64 zero cross K/V "
+          f"slots): tokens {out['tokens'].shape} finite logits "
+          f"{bool(torch.isfinite(out['prompt_logits']).all())} launches {json.dumps(n)}",
+          flush=True)
+    if (sum(n.values()) or out["tokens"].shape != (4, 8) or cross.dtype != torch.bfloat16
+            or not bool(torch.isfinite(out["prompt_logits"]).all())):
+        fail(f"decode {one.name}: decode_main's audio branch: launches {n}, "
+             f"tokens {out['tokens'].shape}")
+    del out, cross
+    gc_collect()
+
+    # (c) the card against the port's CPU run: full width at 1 + 1 layers in
+    # bf16, the reduced model in f32, each decoding against encoded frames
+    decode_cpu_parity(torch, np, dev, smi, one, fill=whisper_fill(np, WHISPER_PARITY_FRAMES))
+    rcfg = cfg.reduced()
+    mx, same = reduced_f32_parity(torch, np, dev, rcfg, fill=whisper_fill(np, 48))
+    print(f"whisper card vs cpu, reduced {cfg.name} in f32 (2 + 2 layers, d_model "
+          f"{rcfg.d_model}, 48 frames, B {MOE_PARITY['batch']}, {MOE_PARITY['prompt']} "
+          f"+ {MOE_PARITY['gen']} tokens): logits max |gap| {mx:.6e} (tol "
+          f"{WHISPER_F32_TOL}: bf16 caches); greedy tokens equal: {same}", flush=True)
+    if not (mx <= WHISPER_F32_TOL and same):
+        fail(f"whisper card vs cpu reduced f32: logits {mx:.3e}, tokens equal {same}")
+    lap("(c) card against CPU")
+
+    # (d) DeltaGrad at 2 + 2 layers; (e) the train CLI at that cut
+    lcfg = stack_deltagrad(torch, np, dev, kernels, smi, cfg.name, "whisper lm",
+                           WHISPER_LM, WHISPER_DG_BAR, "2 + 2 of 32 + 32 layers")
+    lap(f"(d) DeltaGrad at {WHISPER_LM['layers']} + {WHISPER_LM['layers']} layers")
+    train_resume(torch, np, kernels, smi, lcfg, WHISPER_LM["n_params"],
+                 flash_per_step=WHISPER_LM["layers"], run=WHISPER_TRAIN)
+    lap("(e) the train CLI, resumed")
+    print(f"whisper: phase wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def whisper_fill(np, frames: int, seed: int = 3):
+    """The parity helpers' `fill` for an encoder-decoder: `frames` frames
+    N(0, 1) (from `seed`, the same on both devices) encoded in the compute
+    dtype, and caches of `slots` self-attention slots with the memory's
+    cross K/V (`encdec.fill_cross_caches`)."""
+    def fill(model, params, where, batch, slots, dtype):
+        import torch
+
+        from repro_torch.models import encdec
+        from repro_torch.models.transformer import cast_params
+        from repro_torch.utils.tree import nested
+
+        x = np.random.default_rng(seed).standard_normal(
+            (batch, frames, model.cfg.d_model), dtype=np.float32)
+        mem = encdec.encode(cast_params(nested(params), dtype),
+                            torch.from_numpy(x).to(where).to(dtype), model.cfg)
+        caches = model.cache_init(batch, slots, enc_len=0, device=where)
+        caches["cross_k"], caches["cross_v"] = encdec.fill_cross_caches(params, mem, model.cfg)
+        return caches
+
+    return fill
+
+
+def whisper_decode(torch, np, dev, kernels, smi, cfg) -> dict:
+    """19 (a): whisper-large-v3's config `cfg` (32 encoder and 16 decoder
+    layers), B 16: the f32 master
+    weights cast once to bf16 (as `decode_main` does), 1500 frames N(0, 1)
+    encoded once, the cross caches filled, then `generate` over a 128
+    prompt and 64 greedy tokens, under flash, with the launch counts
+    zeroed just before and read after (the encoder and the stepped decode
+    launch none).  Prints tokens/s, ms a step against the step's byte
+    bound, memory, the cross caches' bytes, and a profile of one step
+    (launches, busy share).  Returns what (b) needs."""
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    from repro_torch.models.attention_config import use_attention_impl
+    from repro_torch.models.registry import build, param_shapes
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.utils.tree import flatten_nested, nested
+
+    W = WHISPER_DECODE
+    B, P, G, S_enc = W["batch"], W["prompt"], W["gen"], W["frames"]
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = cast_params(nested(model.init(seed=0, device=dev)), torch.bfloat16)
+    gc_collect()
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal((B, S_enc, cfg.d_model),
+                                                  dtype=np.float32)).to(dev)
+    prompt = rng.integers(0, cfg.vocab, size=(B, P), dtype=np.int32)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mem = encdec.encode(params, frames.to(torch.bfloat16), cfg)
+        caches = model.cache_init(B, P + G, enc_len=0, device=dev)
+        caches["cross_k"], caches["cross_v"] = encdec.fill_cross_caches(params, mem, cfg)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        out = serve.generate(model, params, prompt, G, device=dev, caches=caches)
+        return out, enc_s, caches
+
+    with use_attention_impl("flash"), torch.no_grad():
+        (res, enc_s, caches), n = counted_run(kernels, run)
+    peak = torch.cuda.max_memory_allocated()
+    p = sum(x.numel() for x in flatten_nested(params).values())
+    cross_bytes = sum(caches[k].numel() * caches[k].element_size()
+                      for k in ("cross_k", "cross_v"))
+    shapes = param_shapes(cfg)
+    dec_w = sum(math.prod(v) for k, v in shapes.items() if k.startswith("dec/"))
+    kv = sum(caches["self"][k].numel() * 2 for k in ("k", "v"))
+    step_bytes = 2 * (dec_w + math.prod(shapes["lm_head"]) + B * cfg.d_model) + kv + cross_bytes
+    bound, _ = bound_ms(step_bytes, 0.0)
+    ms = res["gen_s"] * 1e3 / G
+    print(f"decode {cfg.name} {cfg.n_encoder_layers} + {cfg.n_layers} layers: "
+          f"p={p} ({p * 4 / 1e9:.3f} GB f32 master, cast once to {p * 2 / 1e9:.3f} "
+          f"GB bf16) B={B} frames={S_enc} prompt={P} gen={G} greedy: encode + "
+          f"fill_cross_caches {enc_s:.4f} s, stepped prefill_s={res['prefill_s']:.4f} "
+          f"generate_s={res['gen_s']:.4f} tokens/s={B * G / res['gen_s']:.2f} "
+          f"ms/token={ms:.4f} (per decode step of the batch); a step moves "
+          f"{step_bytes / 1e9:.3f} GB (decoder bf16 weights {2 * dec_w / 1e9:.3f} GB, "
+          f"the head {2 * math.prod(shapes['lm_head']) / 1e9:.3f} GB, the self KV "
+          f"caches {kv / 1e9:.3f} GB, the cross K/V {cross_bytes} bytes): byte bound "
+          f"{bound:.4f} ms ({ms / bound:.1f}x) max_memory_allocated={peak} "
+          f"launches {json.dumps(n)} | {smi}", flush=True)
+    if p != W["n_params"] or cross_bytes != W["cross_bytes"]:
+        fail(f"decode {cfg.name}: p = {p}, cross K/V {cross_bytes} bytes, want "
+             f"{W['n_params']} and {W['cross_bytes']}")
+    if sum(n.values()):
+        fail(f"decode {cfg.name}: encode and the stepped decode launched {n}; "
+             "their attention is blockwise and plain contractions")
+    ok = (res["tokens"].shape == (B, G) and bool(torch.isfinite(res["prompt_logits"]).all())
+          and ((0 <= res["tokens"]) & (res["tokens"] < cfg.vocab)).all())
+    if not ok:
+        fail(f"decode {cfg.name}: tokens {res['tokens'].shape} or logits not finite")
+    # where a step's time goes: one step under the profiler
+    one = model.cache_init(B, 1, enc_len=0, device=dev)
+    one["cross_k"], one["cross_v"] = caches["cross_k"], caches["cross_v"]
+    _, prof = profile_run(torch, lambda: serve.generate(
+        model, params, prompt[:, :1], 0, device=dev, caches=one))
+    print(f"decode {cfg.name} profile, 1 step: wall_ms={prof['wall_ms']:.3f} (under "
+          f"the profiler) device_busy_ms={prof['busy_us'] / 1e3:.3f} busy_share="
+          f"{prof['busy_us'] / 1e3 / prof['wall_ms']:.3f} cudaLaunchKernel="
+          f"{prof['launches_host']} | {smi}", flush=True)
+    return {"model": model, "params": params, "frames": frames, "prompt": prompt,
+            "prompt_logits": res["prompt_logits"]}
+
+
+def whisper_prefill(torch, dev, kernels, smi, cfg, res) -> None:
+    """19 (b): `prefill_fn` (the encoder over the frames, the decoder over
+    the prompt) against (a)'s stepped decode, under flash (held: one flash
+    launch a decoder layer, none in the encoder) and under blockwise
+    (none), in bf16 at WHISPER_PREFILL_TOL; then in f32 compute from the
+    f32 master weights (seed 0), the stepped decode's caches filled from
+    the same frames, at WHISPER_PREFILL_F32.  Both forms hold bf16 caches
+    (the reference's design), so the f32 gap is the caches' rounding."""
+    from repro_torch.models import encdec
+    from repro_torch.models.attention_config import use_attention_impl
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.utils.tree import nested
+
+    model, prompt = res["model"], torch.from_numpy(res["prompt"]).to(dev)
+    batch = {"frames": res["frames"], "tokens": prompt}
+    for impl in ("flash", "blockwise"):
+        with use_attention_impl(impl):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, n = counted_run(kernels, lambda: model.prefill_fn(res["params"], batch))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        gap = (got - res["prompt_logits"]).abs()
+        mx, mean = gap.max().item(), gap.mean().item()
+        tol = WHISPER_PREFILL_TOL
+        print(f"decode {cfg.name} prefill_fn {impl}: {ms:.3f} ms for {tuple(prompt.shape)} "
+              f"tokens and {tuple(res['frames'].shape[:2])} frames; against the stepped "
+              f"decode's last logits max |gap| {mx:.6e} mean {mean:.6e} (tol "
+              f"{tol['max']} / {tol['mean']}); flash launches {n['flash_attention']} "
+              f"| {smi}", flush=True)
+        if not (mx <= tol["max"] and mean <= tol["mean"]):
+            fail(f"decode {cfg.name}: prefill_fn ({impl}) against the stepped decode: "
+                 f"max {mx:.3e} mean {mean:.3e}")
+        want = cfg.n_layers if impl == "flash" else 0
+        if n["flash_attention"] != want or sum(n.values()) != want:
+            fail(f"decode {cfg.name}: prefill_fn ({impl}) launched {n}, want {want} "
+                 "flash launches and nothing else")
+    del res["params"]
+    gc_collect()
+    # f32 compute: the uncast master weights
+    n_tok, bar = WHISPER_PREFILL_F32["prompt"], WHISPER_PREFILL_F32
+    params = model.init(seed=0, device=dev)
+    with torch.no_grad():
+        mem = encdec.encode(cast_params(nested(params), torch.float32),
+                            res["frames"], cfg)
+        caches = model.cache_init(prompt.shape[0], n_tok, enc_len=0, device=dev)
+        caches["cross_k"], caches["cross_v"] = encdec.fill_cross_caches(params, mem, cfg)
+        del mem
+        for t in range(n_tok):
+            logits, caches = model.decode_fn(params, {"tokens": prompt[:, t:t + 1]},
+                                             caches, dtype=torch.float32)
+    pre = model.prefill_fn(params, {"frames": res["frames"], "tokens": prompt[:, :n_tok]},
+                           dtype=torch.float32)
+    gap = (pre - logits).abs()
+    mx, mean = gap.max().item(), gap.mean().item()
+    print(f"decode {cfg.name} prefill_fn f32 compute, {n_tok} tokens: against the "
+          f"stepped f32 decode's last logits max |gap| {mx:.6e} mean {mean:.6e} (tol "
+          f"{bar['max']} / {bar['mean']}: bf16 caches) | {smi}", flush=True)
+    if not (mx <= bar["max"] and mean <= bar["mean"]):
+        fail(f"decode {cfg.name}: f32 prefill_fn against the stepped decode: max "
+             f"{mx:.3e} mean {mean:.3e}")
+    del params, caches, pre, logits
+
+
 def stack_deltagrad(torch, np, dev, kernels, smi, arch, tag, cut, bars, note,
                     dtype=None, main_path=True, profile=False):
     """DeltaGrad on `arch` at full width and cut["layers"] layers, on phase
@@ -2355,8 +2739,9 @@ def stack_deltagrad(torch, np, dev, kernels, smi, arch, tag, cut, bars, note,
     main path the replay runs once with the launch counts zeroed just
     before and read after (under the profiler if `profile`), and the three
     replay kernels are held against their plain versions at this p.  Held:
-    no flash or dequant launch (no plain attention block is reached, and
-    the f32 history is fetched), each replay kernel launched once per
+    cut.get("flash_per_forward", 0) flash launches a forward pass (none
+    where no plain attention block is reached) and no dequant launch (the
+    f32 history is fetched), each replay kernel launched once per
     approx step (at least once where the guard sent a segment back), and
     d_ui < d_us where both packages meet it on the CPU (``bars[dtype]``
     True; else recorded).  Returns the cut config, registered for the
@@ -2372,14 +2757,17 @@ def stack_deltagrad(torch, np, dev, kernels, smi, arch, tag, cut, bars, note,
         torch, np, dev, arch, dtype, layers=cut["layers"],
         steps=cut.get("steps", LM["steps"]),
         burn_in=cut.get("burn_in", LM_DG["burn_in"]),
-        window=cut.get("window", LM_DG["stream_window"]), remat=cut["remat"])
+        window=cut.get("window", LM_DG["stream_window"]), remat=cut["remat"],
+        seq=cut.get("seq", LM["seq"]), frames=cut.get("frames", 0))
     lcfg = register(dc.replace(cfg, name=f"{cfg.name}-{cfg.n_layers}l"))
     if p0.numel != cut["n_params"]:
         fail(f"{tag}: p = {p0.numel}, want {cut['n_params']}")
     print(f"{tag}: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads} of "
           f"{cfg.head_dim} unit={cfg.layout_unit} layers={cfg.n_layers} "
+          f"encoder_layers={cfg.n_encoder_layers} frames={cut.get('frames', 0)} "
           f"({note}) vocab={cfg.vocab} p={p0.numel} ({p0.numel * 4 / 1e9:.3f} GB a "
-          f"f32 vector) {what} compute docs={LM['docs']}x{LM['seq']} B={LM['batch']} "
+          f"f32 vector) {what} compute docs={LM['docs']}x{cut.get('seq', LM['seq'])} "
+          f"B={LM['batch']} "
           f"T={meta.steps} T0={dgc.period} j0={dgc.burn_in} m={dgc.history_size} "
           f"window={dgc.stream_window} removed={removed.tolist()}; the host f32 "
           f"history needs {meta.steps * 2 * p0.numel * 4 / 1e9:.1f} GB; "
@@ -2423,9 +2811,11 @@ def stack_deltagrad(torch, np, dev, kernels, smi, arch, tag, cut, bars, note,
         fail(f"{tag} {what}: d_ui {d_ui:.3e} not below d_us {d_us:.3e}")
     if st.approx_steps <= 0:
         fail(f"{tag}: the replay took no approx step")
-    if n["flash_attention"] or n["dequant_update"] or n["dequant_sub"]:
-        fail(f"{tag}: launches {n}: no plain attention block is reached and "
-             "the f32 history is fetched")
+    want_flash = cut.get("flash_per_forward", 0) * forwards[0]
+    if n["flash_attention"] != want_flash or n["dequant_update"] or n["dequant_sub"]:
+        fail(f"{tag}: launches {n}: want {want_flash} flash launches "
+             f"({cut.get('flash_per_forward', 0)} a forward pass) and no dequant "
+             "launch (the f32 history is fetched)")
     check_replay_launches(tag, n, st)
     del w_star, w_u, w_i, p0, hist, obj, model
     gc_collect()
@@ -2741,30 +3131,34 @@ def check_replay_launches(label: str, n: dict, st, names=RESIDENT) -> None:
                  f"steps and {st.guard_fallbacks} guard fallbacks")
 
 
-def logreg_phase(torch, np, dev, kernels) -> dict:
+def logreg_phase(torch, np, dev, kernels, data) -> dict:
     """Phase 10: the paper's L2-regularised logistic regression at the
     LIBSVM rcv1.binary training shape (paper §4.1; synthetic features at
     that shape, dense f32 on the card), paper_logreg's recipe with B 4096
     and T 60: a delete and an add replay of r rows, and a heavy-ball
-    (0.9) delete replay, each against BaseL on the changed data.  Returns
-    the data set's first n rows (numpy) for phase 12."""
+    (0.9) delete replay, each against BaseL on the changed data.  `data`
+    is the future of (`timed`) `binary_classification` at that shape,
+    drawn in the background since phase 2.  Returns the data set's first n
+    rows (numpy) for phase 12."""
     from repro_torch.configs.paper_logreg import RECIPE
     from repro_torch.core import deltagrad as dg
     from repro_torch.core.history import HistoryMeta
-    from repro_torch.data.synthetic import binary_classification
     from repro_torch.models.simple import (logreg_accuracy, logreg_init,
                                            logreg_objective)
 
     L = LOGREG
     t0 = time.perf_counter()
-    ds = binary_classification(L["n"], L["d"], seed=L["seed"])
+    ds, draw_s = data.result()
+    wait_s = time.perf_counter() - t0
     cols = ds.device_columns(dev)
     cols["x"][-1, -1].item()  # the upload has landed
     print(f"logreg: rcv1.binary shape n={ds.n} d={L['d']} "
           f"({ds.columns['x'].nbytes / 1e9:.3f} GB f32 on the card) "
           f"B={L['batch']} T={L['steps']} r={L['r']} lr={RECIPE.lr} "
           f"l2={RECIPE.l2} T0={RECIPE.period} j0={RECIPE.burn_in} "
-          f"m={RECIPE.history_size}; data set-up {time.perf_counter() - t0:.2f} s",
+          f"m={RECIPE.history_size}; data set-up {time.perf_counter() - t0:.2f} s "
+          f"(drawn in {draw_s:.2f} s in the background since phase 2, waited "
+          f"{wait_s:.2f} s here)",
           flush=True)
     del cols
     obj = logreg_objective(l2=RECIPE.l2)
@@ -2971,25 +3365,34 @@ def online_phase(torch, np, dev, kernels) -> None:
 
 def lm_setup(torch, np, dev, arch="internlm2-1.8b", dtype=None,
              layers=LM["layers"], steps=LM["steps"], burn_in=LM_DG["burn_in"],
-             window=LM_DG["stream_window"], remat=False):
-    """Phase 9's recipe on `arch` at full width and `layers` layers, T
-    `steps`, j0 `burn_in` and `window` steps a streamed window (phase 9's
-    unless a cut says otherwise): (cfg, model, p0, docs, meta, the
-    DeltaGrad config, removed rows, the objective under flash, in the
-    compute `dtype` (None is the model's bf16), with per-block activation
-    checkpointing if `remat`)."""
+             window=LM_DG["stream_window"], remat=False, seq=LM["seq"], frames=0):
+    """Phase 9's recipe on `arch` at full width and `layers` layers (an
+    encoder-decoder: `layers` encoder and `layers` decoder layers), T
+    `steps`, j0 `burn_in`, `window` steps a streamed window and documents
+    of `seq` tokens (phase 9's unless a cut says otherwise), and for an
+    encoder-decoder `frames` frames N(0, 1) a row beside its tokens: (cfg,
+    model, p0, docs, meta, the DeltaGrad config, removed rows, the
+    objective under flash, in the compute `dtype` (None is the model's
+    bf16), with per-block activation checkpointing if `remat`)."""
     import dataclasses as dc
 
     from repro_torch.configs.registry import get_config
     from repro_torch.core import deltagrad as dg
     from repro_torch.core.history import HistoryMeta
+    from repro_torch.data.dataset import Dataset
     from repro_torch.data.synthetic import token_stream
     from repro_torch.models.registry import build
 
-    cfg = dc.replace(get_config(arch), n_layers=layers)
+    cfg = get_config(arch)
+    cfg = dc.replace(cfg, n_layers=layers,
+                     n_encoder_layers=layers if cfg.n_encoder_layers else 0)
     model = build(cfg)
     p0 = model.init(seed=0, device=dev)
-    docs = token_stream(LM["docs"], LM["seq"], cfg.vocab, seed=0)
+    docs = token_stream(LM["docs"], seq, cfg.vocab, seed=0)
+    if frames:
+        docs = Dataset({"frames": np.random.default_rng(1).standard_normal(
+            (LM["docs"], frames, cfg.d_model), dtype=np.float32),
+            "tokens": docs.columns["tokens"]})
     meta = HistoryMeta(n=LM["docs"], batch_size=LM["batch"], seed=LM["seed"],
                        steps=steps, lr_schedule=((0, LM["lr"]),))
     dgc = dg.DeltaGradConfig(**{**LM_DG, "burn_in": burn_in,
@@ -3109,14 +3512,20 @@ def lm_phase(torch, np, dev, kernels) -> dict:
           f"{torch.equal(w_c.flat, w_star.flat)}", flush=True)
     codec_on_card(torch, np, w_star.flat, p0.flat, h_c.bounds)
     runs = {}
-    for mode in ("kernel", "fetch"):
+    for mode in ("kernel", "fetch"):  # kernel mode under the profiler
         torch.cuda.reset_peak_memory_stats()
         zero()
-        w_s, st_s = dg.deltagrad_retrain(obj, h_c, docs, removed,
-                                         dc.replace(dgc, stream_decode=mode))
+
+        def replay():
+            return dg.deltagrad_retrain(obj, h_c, docs, removed,
+                                        dc.replace(dgc, stream_decode=mode))
+
+        w_s, st_s = (profile_replay(torch, "lm host/delta_int8 kernel-mode replay",
+                                    replay) if mode == "kernel" else replay())
         runs[mode] = (w_s, st_s, launches())
         x = st_s.extra
         print(f"lm delta_int8 {mode}: replay_s={st_s.wall_time_s:.4f} "
+              + ("(under the profiler) " if mode == "kernel" else "")
               + " ".join(f"{k}={v}" for k, v in st_s.counters().items())
               + f" windows={x['windows']} host_wait_s={x['host_wait_s']:.4f} "
               f"hbm_high_water={x['hbm_high_water']} "
@@ -3138,9 +3547,6 @@ def lm_phase(torch, np, dev, kernels) -> dict:
         fail(f"lm delta_int8: host bytes {h_c.nbytes()} not below half of "
              f"the f32 path's {f32_host_bytes}")
     del runs, w_k, w_f, w_u
-    profile_replay(torch, "lm host/delta_int8 kernel-mode replay",
-                   lambda: dg.deltagrad_retrain(obj, h_c, docs, removed,
-                                                dc.replace(dgc, stream_decode="kernel")))
     print(f"lm: phase wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
     # the p-length kernels' launches on the LM's main path: the f32 history
     # (resident update), and the delta_int8 one in kernel mode (dequant pair)
@@ -3933,6 +4339,12 @@ def xlstm_main() -> int:
                                                           kernel_table()))
 
 
+def whisper_main() -> int:
+    """``--whisper``: phase 19 alone."""
+    return opt_in_main(lambda torch, np, dev: whisper_phase(torch, np, dev,
+                                                            kernel_table()))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--hybrid"]:
         sys.exit(hybrid_main())
@@ -3940,6 +4352,8 @@ if __name__ == "__main__":
         sys.exit(hybrid_dg_main(sys.argv[2]))
     if sys.argv[1:] == ["--xlstm"]:
         sys.exit(xlstm_main())
+    if sys.argv[1:] == ["--whisper"]:
+        sys.exit(whisper_main())
     if sys.argv[1:2] == ["--xlstm-dg"] and len(sys.argv) == 3:
         sys.exit(xlstm_dg_main(sys.argv[2]))
     if sys.argv[1:2] == ["--moe-dg"] and len(sys.argv) == 3:

@@ -1,12 +1,14 @@
-"""The model configuration, for the GQA token decoders, the MoE family,
-multi-head latent attention (MLA), the Mamba2 hybrid stack and xLSTM.
+"""The model and shape configurations, for the GQA token decoders, the
+MoE family, multi-head latent attention (MLA), the Mamba2 hybrid stack,
+xLSTM and the encoder-decoder family (Whisper).
 
 The port's copy of the JAX package's ``configs/base.py``: `ModelConfig`,
-`MLAConfig`, `MoEConfig`, `SSMConfig` and `XLSTMConfig` with the same
-field names and defaults (tests hold them field by field against the
-reference's entries).  The fields of the encoder-decoder family and its
-frontend wait for the family that reads them;
-`models.transformer.layout_of` raises for a config that needs them.
+`MLAConfig`, `MoEConfig`, `SSMConfig`, `XLSTMConfig` and `ShapeConfig`
+with the same field names and defaults (tests hold them field by field
+against the reference's entries).  An encoder-decoder config has
+``family="audio"`` and ``n_encoder_layers`` encoder layers beside its
+``n_layers`` decoder layers (`models.encdec`); ``frontend="frames"``
+feeds precomputed frame embeddings in place of token embeddings.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ class XLSTMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | vlm | moe | hybrid | ssm (the token decoders ported) | simple
+    family: str  # dense | vlm | moe | hybrid | ssm | audio (enc-dec) | simple
     n_layers: int
     d_model: int
     n_heads: int
@@ -83,8 +85,10 @@ class ModelConfig:
     # repeating block pattern of a hybrid stack, e.g. ("mamba2",) * 5 +
     # ("attn_shared",) or ("mlstm", "slstm"); None: n_layers x ("attn",)
     layout_unit: Optional[Tuple[str, ...]] = None
+    # enc-dec (whisper): encoder layers use bidirectional attention
+    n_encoder_layers: int = 0
     attn_window: int = 0  # sliding window of attention layers; 0 = full
-    frontend: str = "tokens"
+    frontend: str = "tokens"  # "tokens" | "frames" (precomputed embeddings)
     notes: str = ""
     source: str = ""
 
@@ -96,8 +100,8 @@ class ModelConfig:
         """A tiny same-family config for CPU tests (the reference's
         defaults: a dense stack, for MLA ranks 32 / 16 and head dims of 8,
         for MoE 8 experts, top-2, for an SSM d_state, head_dim and chunk
-        16, and a hybrid or xLSTM stack cut to one unit), with `overrides` on
-        top."""
+        16, a hybrid or xLSTM stack cut to one unit, and an
+        encoder-decoder to 2 encoder layers), with `overrides` on top."""
         small = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -106,6 +110,7 @@ class ModelConfig:
             d_ff=128,
             vocab=256,
             d_head=16,
+            n_encoder_layers=2 if self.n_encoder_layers else 0,
         )
         if self.mla:
             small["mla"] = MLAConfig(
@@ -125,3 +130,19 @@ class ModelConfig:
             small["n_layers"] = len(self.layout_unit)  # one repeating unit
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A cell's input shape: ``seq_len`` tokens (for an encoder-decoder
+    also its frames) of ``global_batch`` rows, for the ``kind`` train,
+    prefill, decode or long_decode."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode | long_decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind in ("decode", "long_decode")

@@ -11,7 +11,7 @@ ARCHS: Dict[str, ModelConfig] = {}
 
 _ARCH_MODULES = ["internlm2_1_8b", "qwen3_32b", "nemotron_4_15b",
                  "chameleon_34b", "qwen2_moe_a2_7b", "moonshot_v1_16b_a3b",
-                 "minicpm3_4b", "zamba2_7b", "xlstm_350m",
+                 "minicpm3_4b", "zamba2_7b", "xlstm_350m", "whisper_large_v3",
                  "paper_logreg"]
 
 

@@ -432,8 +432,11 @@ def unlearn_main(argv) -> dict:
 
 
 def generate(model, params, prompt: np.ndarray, gen: int, *,
-             temperature: float = 0.0, seed: int = 0, device=None) -> dict:
-    """Prefill `prompt` (B, P) by stepping fresh KV caches, then generate
+             temperature: float = 0.0, seed: int = 0, device=None,
+             caches=None) -> dict:
+    """Prefill `prompt` (B, P) by stepping fresh KV caches (or `caches`,
+    made by the caller for P + gen tokens: an encoder-decoder's with its
+    cross K/V filled, `models.encdec.fill_cross_caches`), then generate
     `gen` tokens: greedy, or sampled at `temperature` from a generator on
     the device seeded by `seed`.  `params` may be bf16 already
     (`transformer.decode_step` casts float32 leaves only).  Returns
@@ -447,7 +450,8 @@ def generate(model, params, prompt: np.ndarray, gen: int, *,
 
     dev = torch.device(device)
     batch, prompt_len = prompt.shape
-    caches = model.cache_init(batch, prompt_len + gen, device=dev)
+    if caches is None:
+        caches = model.cache_init(batch, prompt_len + gen, device=dev)
     decode = make_serve_step(model.decode_fn)
     prompt_dev = torch.from_numpy(prompt).to(dev)
 
@@ -495,7 +499,8 @@ def decode_main(argv=None) -> dict:
     The f32 master weights are cast to bf16 once, before the loop:
     `transformer.decode_step` casts float32 leaves on every call and uses
     bf16 ones as they are, so the logits are the same, and the f32 tree is
-    freed."""
+    freed.  An encoder-decoder decodes, as the reference's CLI does,
+    against 64 cross K/V slots of zeros: no frames are encoded."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import resolve_device
     from repro_torch.models.registry import build
@@ -525,8 +530,13 @@ def decode_main(argv=None) -> dict:
     rng = np.random.default_rng(args.seed)
     prompt = rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len),
                           dtype=np.int32)
+    caches = None
+    if cfg.family == "audio":
+        caches = model.cache_init(args.batch, args.prompt_len + args.gen,
+                                  enc_len=64, device=dev)
     res = generate(model, params, prompt, args.gen,
-                   temperature=args.temperature, seed=args.seed, device=dev)
+                   temperature=args.temperature, seed=args.seed, device=dev,
+                   caches=caches)
     tok_s = args.batch * args.gen / max(res["gen_s"], 1e-9)
     print(f"prefill {args.prompt_len} tok x {args.batch} in "
           f"{res['prefill_s']:.2f}s; generated {args.gen} tok x {args.batch} "

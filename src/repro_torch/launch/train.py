@@ -11,6 +11,11 @@ for flag, plus ``--device`` (the card unless ``cpu`` is asked for):
     python -m repro_torch.launch.train --arch paper-logreg --device cpu \\
         --steps 150 --delete-frac 0.01
 
+An encoder-decoder (``--arch whisper-large-v3``) trains on stub frames
+(B, seq, d_model) N(0, 1) in bf16, drawn each step from a generator
+seeded by the step, as the reference draws them from ``PRNGKey(step)``
+(the numbers differ), so a resumed run sees the same frames.
+
 Resume: re-run the same command; the driver picks up the last complete
 step (a checkpoint holds the whole `TrainState`: params, AdamW's m and v
 and the step, under the reference's names, so a checkpoint either
@@ -73,6 +78,11 @@ def train_lm(args) -> dict:
     for step in range(start, args.steps):
         idx = batch_indices(args.seed, step, corpus.n, args.batch)
         batch = {"tokens": torch.from_numpy(corpus.take(idx)["tokens"]).to(dev)}
+        if cfg.family == "audio":  # stub frames, drawn anew from the step
+            batch["frames"] = torch.randn(
+                args.batch, args.seq, cfg.d_model, dtype=torch.bfloat16,
+                device=dev,
+                generator=torch.Generator(device=dev).manual_seed(step))
         timer.start()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])  # the step's one host sync

@@ -3,7 +3,11 @@
 The port's copy of the JAX package's ``models/transformer.py`` for the GQA
 token decoders (InternLM2 and its kind), the MoE family (Qwen-MoE,
 Moonlight), multi-head latent attention (MiniCPM3), the Mamba2 hybrid
-(Zamba2) and xLSTM.  A model is ``n_units`` repeats of a unit of blocks
+(Zamba2) and xLSTM, with the reference's two frontends: token ids
+(``batch["tokens"]``) or precomputed frame embeddings (``frontend=
+"frames"``: ``batch["frames"]`` (B, S, d_model) in, ``batch["targets"]``
+the loss's labels).  The encoder-decoder family is `models.encdec`.  A
+model is ``n_units`` repeats of a unit of blocks
 (`layout_of`): one attention block for the dense stacks, five ``mamba2``
 blocks and one ``attn_shared`` block for Zamba2, an ``mlstm`` and an
 ``slstm`` block for xLSTM.  Parameters are one
@@ -77,49 +81,47 @@ from repro_torch.models.xlstm import (mlstm_cache_init, mlstm_chunked,
 from repro_torch.utils.tree import FlatParams, flatten_nested, nested
 
 
-# what waits for which slice: ROADMAP.md queue 1 item 9, in order
-_NOT_PORTED = {
-    "encdec": "the encoder-decoder family and its frame frontend (item 9e)",
-}
 _BLOCKS = {"attn", "attn_shared", "mamba2", "mlstm", "slstm"}  # the kinds ported
 _RECURRENT = ("mamba2", "mlstm", "slstm")  # blocks of ln1 and a mixer, no FFN
 
 
 def layout_of(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int]:
-    """(unit, n_units) of a token decoder whose unit is made of attention
-    blocks (GQA or MLA; ``attn_shared`` for one set of weights shared by
-    every unit), Mamba2 blocks and mLSTM and sLSTM blocks, whatever its
-    family label (the reference's `layout_of` looks only at the unit),
-    with a dense or an MoE FFN; raises for every other model."""
+    """(unit, n_units) of a decoder whose unit is made of attention blocks
+    (GQA or MLA; ``attn_shared`` for one set of weights shared by every
+    unit), Mamba2 blocks and mLSTM and sLSTM blocks, whatever its family
+    label (the reference's `layout_of` looks only at the unit), with a
+    dense or an MoE FFN and either frontend.  An encoder-decoder (family
+    ``"audio"``) has no unit of blocks: its layers are `models.encdec`'s,
+    and this raises for it, as for every other model."""
     unit = tuple(cfg.layout_unit) if cfg.layout_unit else ("attn",)
-    if cfg.family == "audio" or cfg.frontend != "tokens":
-        missing = "encdec"
-    elif (cfg.mlp == "moe") != (cfg.moe is not None):
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: an encoder-decoder (family 'audio') "
+                         "is built from models.encdec, not from a unit of "
+                         "blocks; models.registry.build gives its model")
+    if cfg.frontend not in ("tokens", "frames"):
+        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r}; the "
+                         "reference's are 'tokens' and 'frames'")
+    if (cfg.mlp == "moe") != (cfg.moe is not None):
         raise ValueError(f"{cfg.name}: mlp {cfg.mlp!r} with moe {cfg.moe!r}; "
                          "an MoE FFN takes mlp='moe' and its MoEConfig")
-    elif (cfg.attention == "mla") != (cfg.mla is not None):
+    if (cfg.attention == "mla") != (cfg.mla is not None):
         raise ValueError(f"{cfg.name}: attention {cfg.attention!r} with mla "
                          f"{cfg.mla!r}; an MLA mixer takes attention='mla' "
                          "and its MLAConfig")
-    elif "mamba2" in unit and cfg.ssm is None:
+    if "mamba2" in unit and cfg.ssm is None:
         raise ValueError(f"{cfg.name}: unit {unit} with ssm None; a mamba2 "
                          "block takes its SSMConfig")
-    elif {"mlstm", "slstm"} & set(unit) and cfg.xlstm is None:
+    if {"mlstm", "slstm"} & set(unit) and cfg.xlstm is None:
         raise ValueError(f"{cfg.name}: unit {unit} with xlstm None; an mlstm "
                          "or slstm block takes its XLSTMConfig")
-    elif set(unit) <= _BLOCKS and cfg.attention in ("gqa", "mla"):
-        if cfg.n_layers % len(unit):
-            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
-                             f"whole units of {unit}")
-        return unit, cfg.n_layers // len(unit)
-    else:
+    if not (set(unit) <= _BLOCKS and cfg.attention in ("gqa", "mla")):
         raise NotImplementedError(
             f"{cfg.name}: unit {unit}, attention {cfg.attention!r} is not a "
             "model of the reference (ROADMAP.md queue 1 item 9)")
-    raise NotImplementedError(
-        f"{cfg.name} (family {cfg.family!r}, unit {unit}): "
-        f"{_NOT_PORTED[missing]} is not ported yet; ROADMAP.md queue 1 "
-        "item 9")
+    if cfg.n_layers % len(unit):
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
+                         f"whole units of {unit}")
+    return unit, cfg.n_layers // len(unit)
 
 
 def _stacked(unit) -> Tuple[int, ...]:
@@ -256,7 +258,9 @@ def cast_params(params: Mapping[str, Any], dtype: torch.dtype) -> Dict[str, Any]
 
 
 def _embed(params, batch, cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
-    return params["embed"][batch["tokens"]].to(dtype)
+    if cfg.frontend == "frames":
+        return batch["frames"].to(dtype)  # precomputed stub embeddings
+    return params["embed"][batch["tokens"].long()].to(dtype)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -379,29 +383,40 @@ def _slice(tree, u: int):
             for k, v in tree.items()}
 
 
+def row_ce(params, h: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig,
+           loss_chunk: int = 512) -> torch.Tensor:
+    """(B,) each row's mean token loss of the final hidden states h (B, S,
+    d) against `targets` (B, S), the last position masked, as the
+    reference's mask of S - 1 ones.  The logits are taken `loss_chunk`
+    positions at a time (f32, from bf16 operands)."""
+    B, S, _ = h.shape
+    targets = targets.long()
+    C = min(loss_chunk, S)
+    total = torch.zeros(B, device=h.device)
+    for a in range(0, S, C):
+        logits = _lm_head(params, h[:, a:a + C], cfg)
+        logz = torch.logsumexp(logits, dim=-1)
+        true = logits.gather(-1, targets[:, a:a + C, None])[..., 0]
+        valid = torch.arange(a, a + logits.shape[1], device=h.device) < S - 1
+        total = total + ((logz - true) * valid).sum(dim=-1)
+    return total / max(S - 1, 1)
+
+
 def _loss_terms(params: Mapping[str, torch.Tensor], batch, cfg: ModelConfig,
                 *, per_row: bool, dtype: torch.dtype = torch.bfloat16,
                 remat: bool = True, loss_chunk: int = 512):
     """(ce (B,): each row's mean masked token loss, aux: the router term
     ``router_aux_weight * aux / n_units`` per token group, or None for a
-    dense FFN).  The logits are taken `loss_chunk` positions at a time
-    (f32, from bf16 operands)."""
+    dense FFN).  The targets are the next tokens, or ``batch["targets"]``
+    under the frames frontend."""
     p = cast_params(nested(params), dtype)
-    tokens = batch["tokens"].long()
-    batch = {**batch, "tokens": tokens}
     h, aux = forward_hidden(p, _embed(p, batch, cfg, dtype), cfg, remat=remat,
                             per_row=per_row)
-    B, S, _ = h.shape
-    targets = F.pad(tokens[:, 1:], (0, 1))
-    C = min(loss_chunk, S)
-    total = torch.zeros(B, device=h.device)
-    for a in range(0, S, C):
-        logits = _lm_head(p, h[:, a:a + C], cfg)
-        logz = torch.logsumexp(logits, dim=-1)
-        true = logits.gather(-1, targets[:, a:a + C, None])[..., 0]
-        valid = torch.arange(a, a + logits.shape[1], device=h.device) < S - 1
-        total = total + ((logz - true) * valid).sum(dim=-1)
-    ce = total / max(S - 1, 1)
+    if cfg.frontend == "frames":
+        targets = batch["targets"]
+    else:
+        targets = F.pad(batch["tokens"].long()[:, 1:], (0, 1))
+    ce = row_ce(p, h, targets, cfg, loss_chunk)
     if aux is None:
         return ce, None
     _, n_units = layout_of(cfg)
@@ -520,7 +535,7 @@ def decode_step(params: Mapping[str, Any], batch, caches, cfg: ModelConfig,
     `mamba2.mamba2_decode`, `xlstm.mlstm_step`, `xlstm.slstm_step`)."""
     unit, n_units = layout_of(cfg)
     p = cast_params(nested(params), dtype)
-    x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
+    x = _embed(p, batch, cfg, dtype)
     lens = {pos: [] for pos in range(len(unit)) if "len" in caches[f"u{pos}"]}
     for u in range(n_units):
         for pos, (kind, blk) in enumerate(_unit_blocks(p, unit, u)):
@@ -548,6 +563,6 @@ def prefill(params: Mapping[str, Any], batch, cfg: ModelConfig, *,
     SSD, an mLSTM block the chunkwise-parallel form, an sLSTM block its
     loop over time."""
     p = cast_params(nested(params), dtype)
-    x = _embed(p, {"tokens": batch["tokens"].long()}, cfg, dtype)
+    x = _embed(p, batch, cfg, dtype)
     h, _ = forward_hidden(p, x, cfg, remat=False)
     return _lm_head(p, h[:, -1], cfg)

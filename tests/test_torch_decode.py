@@ -144,32 +144,33 @@ def test_layout_takes_the_ported_families(change, ported, layout):
 @pytest.mark.parametrize("change,item", [  # ids as before the MoE family (9a)
     pytest.param(dict(family="ssm", layout_unit=("mlstm", "slstm"), mlp="none"), "9d",
                  id="change3-9d"),
-    pytest.param(dict(family="audio", frontend="frames", mlp="gelu"), "9e",
-                 id="change4-9e"),
+    pytest.param(dict(family="audio", frontend="frames", mlp="gelu",
+                      n_encoder_layers=2), "9e", id="change4-9e"),
 ])
 def test_layout_raises_for_the_families_not_ported(change, item):
-    """The encoder-decoder family (9e) is refused as not ported yet.  xLSTM
-    (9d), once refused here, is taken now: `layout_of` agrees with the
-    reference's, and it raises only for an xLSTM unit without its
-    XLSTMConfig."""
+    """The families this test once refused are taken: xLSTM (9d), whose
+    `layout_of` agrees with the reference's and raises only for an xLSTM
+    unit without its XLSTMConfig, and the encoder-decoder family (9e),
+    which `build` gives as the enc-dec model (`models.encdec`, with the
+    reference's parameter count) and `layout_of` sends there."""
     cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=6, **change)
+    ref = dataclasses.replace(j_get_config("internlm2-1.8b"), n_layers=6, **change)
     if item == "9d":
         with pytest.raises(ValueError, match="XLSTMConfig"):
             tt.layout_of(cfg)
         with pytest.raises(ValueError, match="XLSTMConfig"):
             build(cfg)
         ported = dataclasses.replace(cfg, xlstm=XLSTMConfig())
-        ref = dataclasses.replace(j_get_config("internlm2-1.8b"), n_layers=6, **change,
-                                  xlstm=JXLSTMConfig())
+        ref = dataclasses.replace(ref, xlstm=JXLSTMConfig())
         assert tt.layout_of(ported) == jt.layout_of(ref) == (("mlstm", "slstm"), 3)
         assert build(ported).cfg == ported
         assert count_params(ported) == j_count_params(ref)
         return
-    with pytest.raises(NotImplementedError,
-                       match=rf"\(item {item}\).*ROADMAP.md queue 1 item 9"):
+    model = build(cfg)
+    assert isinstance(model, t_registry.EncDecModel) and model.cfg == cfg
+    assert count_params(cfg) == j_count_params(ref)
+    with pytest.raises(ValueError, match=r"models\.encdec"):
         tt.layout_of(cfg)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build(cfg)
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b",

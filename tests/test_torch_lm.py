@@ -150,11 +150,19 @@ def test_count_params_at_full_width():
 
 
 def test_layout_rejects_families_not_ported():
-    """The encoder-decoder family (item 9e) is the one left; xLSTM (9d),
-    once refused here, is taken (tests/test_torch_xlstm.py)."""
-    cfg = dataclasses.replace(get_config("internlm2-1.8b"), family="audio",
-                              frontend="frames", mlp="gelu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The encoder-decoder family (item 9e), the last this test refused, is
+    taken: `build` gives the enc-dec model with the reference's parameter
+    count, and `layout_of` points to `models.encdec` (its layers are not
+    a unit of blocks)."""
+    from repro.models.registry import count_params as j_count_params
+    from repro_torch.models.registry import EncDecModel
+
+    change = dict(family="audio", frontend="frames", mlp="gelu", n_encoder_layers=2)
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), **change)
+    assert isinstance(build(cfg), EncDecModel)
+    assert count_params(cfg) == j_count_params(
+        dataclasses.replace(j_get_config("internlm2-1.8b"), **change))
+    with pytest.raises(ValueError, match=r"models\.encdec"):
         layout_of(cfg)
 
 
