@@ -148,7 +148,20 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      self-attention), its d_ui/d_us against 1, with the replay kernels'
      and flash's launches and those kernels against their plain versions
      at that p, and the train CLI at that cut resumed from step 2, held
-     bitwise.
+     bitwise;
+ 20. the port's five examples (``examples/torch/{quickstart,
+     online_deletion,jackknife,unlearn_lm,serve_decode}.py``) through their
+     ``main()`` on the card at their own sizes: finite numbers, every
+     tensor on the card, each one's wall time against the phase's 20 s.
+
+Phase 1 also prints `roofline.analytic_cost` of every registered LM arch
+under the four shape cells against the H100's peaks (arithmetic).  Each
+decode (a) of phases 14-19 and each LM train CLI (14 (d), 15-19 (e))
+prints a ``roofline ...`` line: `analytic_cost`'s bytes, FLOPs and bound
+at that run's own batch, sequence (cache slots) and depth, beside the
+phase's own byte bound and the measured ms a step.  Phase 13 prints the
+``replay.scan`` spans' device time (CUDA events read at each replay's
+end-of-replay sync) against their prediction, beside their host time.
 
 Each train-CLI resume writes one checkpoint (the first one due) and reads
 it: both runs are cut before their last step's write, so the CLI is timed
@@ -190,6 +203,10 @@ phase 18 (d) alone in f32 compute (or bf16), recorded against d_us.
     python3 chip_smoke.py --whisper
 
 runs phase 19 alone.
+
+    python3 chip_smoke.py --examples
+
+runs phase 20 alone.
 
     python3 chip_smoke.py --lm-blockwise
 
@@ -506,6 +523,11 @@ WHISPER_PREFILL_F32 = dict(prompt=32, max=1e-2, mean=1.5e-3)
 # 7 draws and diverge alike in one (63.307 / 63.309, the counters equal)
 WHISPER_DG_BAR = {"bf16": True, "f32": "both packages miss alike in 1 of 8 f32 "
                                       "draws on the CPU, PERF.md section 6"}
+# phase 20: the port's five examples (examples/torch/*.py) through their
+# main() on the card at their own sizes, the phase's budget in seconds
+EXAMPLES = ("quickstart", "online_deletion", "jackknife", "unlearn_lm",
+            "serve_decode")
+EXAMPLES_BUDGET_S = 20.0
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
@@ -564,6 +586,70 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOP_PER_
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = flops / peak_flops * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def run_cost(cfg, kind: str, batch: int, seq: int):
+    """`roofline.analytic_cost` of `cfg` (at its own depth) for one step of
+    a run's own batch and sequence (a decode's: its cache slots), with the
+    parameters `count_params` gives."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.registry import count_params
+    from repro_torch.roofline import analytic_cost
+
+    shape = ShapeConfig(name=f"{cfg.name} {kind} B{batch} S{seq}", seq_len=seq,
+                        global_batch=batch, kind=kind)
+    return analytic_cost(cfg, shape, n_params=count_params(cfg))
+
+
+def roofline_line(smi, label: str, cfg, kind: str, batch: int, seq: int,
+                  ms: float, own_ms=None, cost=None):
+    """Print `run_cost`'s bytes, FLOPs and bound (the larger of the bytes
+    over the HBM rate and the FLOPs over the bf16 tensor-core peak,
+    `roofline.hw`) beside the phase's own bound and the measured ms a
+    step; returns the cost."""
+    from repro_torch.roofline import H100_SXM5_80GB as HW
+
+    cost = cost or run_cost(cfg, kind, batch, seq)
+    by_bytes = cost.bytes_global / HW.hbm_bw * 1e3
+    by_flops = cost.flops_global / HW.peak_flops_bf16 * 1e3
+    bound = max(by_bytes, by_flops)
+    own = ("no bound of its own" if own_ms is None else
+           f"its own bound {own_ms:.4f} ms ({ms / own_ms:.1f}x)")
+    layers = (f"{cfg.n_encoder_layers} + {cfg.n_layers}" if cfg.n_encoder_layers
+              else str(cfg.n_layers))
+    print(f"roofline {label}: analytic_cost {kind} B={batch} S={seq} at "
+          f"{layers} layers: {cost.bytes_global / 1e9:.4f} GB, {cost.flops_global:.4e} "
+          f"FLOPs -> bound {bound:.4f} ms by "
+          f"{'bytes' if by_bytes >= by_flops else 'operations'} (bytes "
+          f"{by_bytes:.4f}, FLOPs {by_flops:.4f}); {own}; measured {ms:.4f} ms "
+          f"a step ({ms / bound:.1f}x the analytic bound) | {smi}", flush=True)
+    return cost
+
+
+def roofline_table(smi) -> None:
+    """`analytic_cost` of every registered LM arch at full size under the
+    four shape cells, its compute and memory terms against the H100's
+    peaks (`roofline.hw`): arithmetic, no card time."""
+    from repro_torch.configs.registry import all_archs, all_shapes
+    from repro_torch.models.registry import count_params
+    from repro_torch.roofline import H100_SXM5_80GB as HW, analytic_cost
+
+    shapes = all_shapes()
+    for name, cfg in sorted(all_archs().items()):
+        if cfg.family == "simple":
+            continue
+        n = count_params(cfg)
+        cells = []
+        for cell, shape in shapes.items():
+            c = analytic_cost(cfg, shape, n_params=n)
+            t_c = c.flops_global / HW.peak_flops_bf16 * 1e3
+            t_m = c.bytes_global / HW.hbm_bw * 1e3
+            cells.append(f"{cell} {c.flops_global:.4e} FLOP {c.bytes_global:.4e} B "
+                         f"compute {t_c:.4f} ms memory {t_m:.4f} ms "
+                         f"({'compute' if t_c >= t_m else 'memory'})")
+        print(f"roofline table {name} (p={n}): " + "; ".join(cells), flush=True)
+    print(f"roofline table: peaks {HW.name} bf16 {HW.peak_flops_bf16:.4g} FLOP/s, "
+          f"HBM {HW.hbm_bw:.4g} B/s | {smi}", flush=True)
 
 
 def tensor_core_instructions(lib: Path) -> dict:
@@ -704,6 +790,8 @@ def main() -> int:
         spills = [x.strip() for x in log if "spill" in x and " 0 bytes spill stores" not in x]
         print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}..{max(regs)} "
               f"registers, spills: {spills or 'none'}")
+    # the analytic roofline of every LM arch under the four shape cells
+    roofline_table(smi)
     # the bf16 flash instances must compute on the tensor cores: count the
     # MMA instructions in their SASS (the f32 instances use FMAs)
     def instance(symbol):
@@ -1395,6 +1483,10 @@ def main() -> int:
     gc_collect()
     whisper_phase(torch, np, dev, kernels)
 
+    # -- 20. the port's examples ------------------------------------------------------------
+    gc_collect()
+    examples_phase(torch, np, dev, kernels)
+
     # -- results ---------------------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", file=sys.stderr)
@@ -1411,6 +1503,63 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _example_values(out):
+    """Every tensor and number in an example's result (dicts, lists,
+    FlatParams, tensors, numpy arrays, floats; other objects skipped)."""
+    if isinstance(out, dict):
+        return [v for x in out.values() for v in _example_values(x)]
+    if isinstance(out, (list, tuple)):
+        return [v for x in out for v in _example_values(x)]
+    if hasattr(out, "flat") and hasattr(out, "shapes"):  # FlatParams
+        return [out.flat]
+    if hasattr(out, "dtype") or isinstance(out, (int, float)):
+        return [out]
+    return []
+
+
+def examples_phase(torch, np, dev, kernels) -> None:
+    """Phase 20: the port's five examples (`examples/torch/*.py`) through
+    their `main()` on the card at their own sizes, with the launch counts
+    zeroed just before each and read after: each must end with finite
+    numbers and every tensor it returns on the card; prints each one's wall
+    time (its device work synchronised inside it) beside the phase's
+    budget."""
+    import importlib.util
+
+    smi = nvidia_smi()
+    total = 0.0
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+
+        def run():
+            out = mod.main([])
+            torch.cuda.synchronize()
+            return out
+
+        torch.cuda.synchronize()
+        (out, n), wall = timed(counted_run, kernels, run)
+        total += wall
+        values = _example_values(out)
+        tensors = [v for v in values if isinstance(v, torch.Tensor)]
+        finite = all(bool(torch.isfinite(v.float()).all()) if isinstance(v, torch.Tensor)
+                     else bool(np.isfinite(np.asarray(v, dtype=np.float64)).all())
+                     for v in values)
+        where = sorted({v.device.type for v in tensors})
+        print(f"examples {name}: wall {wall:.3f} s, {len(values)} values "
+              f"({len(tensors)} tensors on {where}) finite: {finite}; launches "
+              f"{json.dumps({k: v for k, v in n.items() if v})} | {smi}", flush=True)
+        if not (tensors and finite and where == ["cuda"]):
+            fail(f"examples {name}: finite {finite}, tensors on {where}")
+        del out, values, tensors
+        gc_collect()
+    print(f"examples: phase wall time {total:.1f} s for {len(EXAMPLES)} examples "
+          f"(budget {EXAMPLES_BUDGET_S:.0f} s{'' if total <= EXAMPLES_BUDGET_S else ', over'}) "
+          f"| {smi}", flush=True)
 
 
 def decode_train_phase(torch, np, dev, kernels) -> None:
@@ -1608,6 +1757,8 @@ def train_resume(torch, np, kernels, smi, tcfg, n_params, flash_per_step,
                 fail(f"train {name}: launches {n} for {steps} steps, want "
                      f"{flash_per_step} flash launches a step and nothing else")
         a, b = runs["whole"], runs["resumed"]
+        roofline_line(smi, f"train {tcfg.name}", tcfg, "train", run["batch"],
+                      run["seq"], a["timer"].percentile(0.5) * 1e3)
         same = (writes == [run["every"]] and b["start"] == run["every"]
                 and a["state"].step == b["state"].step == run["steps"]
                 and all(a["losses"][s] == b["losses"][s] for s in b["losses"])
@@ -2019,6 +2170,8 @@ def moe_train(torch, np, dev, kernels, smi, lcfg) -> None:
           f"= {ce + aux:.6f}; flash launches {n['flash_attention']} "
           f"({n['flash_attention'] / max(steps, 1):.2f}/step); "
           f"max_memory_allocated={peak} | {smi}", flush=True)
+    roofline_line(smi, f"train {lcfg.name}", lcfg, "train", MOE_TRAIN["batch"],
+                  MOE_TRAIN["seq"], ms)
     if not (steps == MOE_TRAIN["steps"] and np.isfinite(list(losses.values())).all()):
         fail(f"train {lcfg.name}: losses {losses}")
     if not (aux > 0 and abs(ce + aux - losses[0]) <= 1e-6 * abs(losses[0])):
@@ -2211,7 +2364,7 @@ def hybrid_phase(torch, np, dev, kernels) -> None:
     dcfg = register(dc.replace(cfg, name=f"{cfg.name}-{HYBRID_DECODE['layers']}l",
                                n_layers=HYBRID_DECODE["layers"]))
     label = f"{cfg.name} {dcfg.n_layers} of {cfg.n_layers} layers"
-    res = decode_run(torch, kernels, smi, label, dcfg, HYBRID_DECODE)
+    res = decode_run(torch, kernels, smi, label, dcfg, HYBRID_DECODE, roofline=False)
     hybrid_step_bound(torch, smi, label, dcfg, res)
     lap(f"(a) decode_main at {dcfg.n_layers} layers")
     model = build(dcfg)
@@ -2296,38 +2449,52 @@ def cumsum_on_card(torch, dev, cfg) -> None:
 def hybrid_step_bound(torch, smi, label, cfg, res) -> None:
     """The decode state's bytes and a step's byte bound on the hybrid: the
     bf16 weights, the shared block's once per occurrence (its weights are
-    read by each unit), the embedding's B rows, and the state
-    read and written (SSM and conv states) or read (the KV caches)."""
-    from repro_torch.models.mamba2 import _dims
-    from repro_torch.models.transformer import layout_of, param_shapes
+    read by each unit), the embedding's B rows, and the state read and
+    written (SSM and conv states) or read (the KV caches).  The states'
+    bytes are the caches' own (allocated on the meta device); the SSM
+    state read and written, the conv state read and the KV caches read
+    are `analytic_cost`'s cache term (held to them), so the step adds the
+    conv state's write to it."""
+    from repro_torch.models.transformer import init_caches, layout_of, param_shapes
 
     unit, n_units = layout_of(cfg)
     B, slots = HYBRID_DECODE["batch"], HYBRID_DECODE["prompt"] + HYBRID_DECODE["gen"]
     n_mamba = unit.count("mamba2") * n_units
-    _, H, conv_dim = _dims(cfg.d_model, cfg.ssm)
-    ssm = n_mamba * B * H * cfg.ssm.head_dim * cfg.ssm.d_state * 4
-    conv = n_mamba * B * (cfg.ssm.d_conv - 1) * conv_dim * 4
-    kv = n_units * 2 * B * min(slots, cfg.attn_window) * cfg.n_kv_heads * cfg.head_dim * 2
+    meta = init_caches(cfg, B, slots, device="meta")
+    size = lambda kind, key: sum(c[key].numel() * c[key].element_size()  # noqa: E731
+                                 for pos, c in meta.items() if unit[int(pos[1:])] == kind)
+    ssm, conv = size("mamba2", "ssm"), size("mamba2", "conv")
+    kv = size("attn_shared", "k") + size("attn_shared", "v")
     shapes = param_shapes(cfg)
     shared = sum(math.prod(v) for k, v in shapes.items() if k.startswith("shared/"))
     p = sum(math.prod(v) for v in shapes.values())
     weights = p - math.prod(shapes["embed"]) + B * cfg.d_model + (n_units - 1) * shared
-    step_bytes = 2 * weights + 2 * (ssm + conv) + kv
+    cost = run_cost(cfg, "decode", B, slots)
+    cache = cost.breakdown["bytes_cache"]
+    step_bytes = 2 * weights + cache + conv
     bound, _ = bound_ms(step_bytes, 0.0)
+    H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
     print(f"decode {label}: state bytes: ssm {ssm} ({n_mamba} Mamba2 blocks x B {B} "
           f"x {H} heads x {cfg.ssm.head_dim} x {cfg.ssm.d_state} f32), conv {conv}, "
           f"KV caches {kv} ({n_units} shared-block occurrences, bf16, "
           f"{min(slots, cfg.attn_window)} slots); a step moves {step_bytes / 1e9:.3f} "
           f"GB (bf16 weights {2 * weights / 1e9:.3f} GB with the shared block "
-          f"{n_units} times, the states read and written, the KV caches read): "
-          f"byte bound {bound:.4f} ms against {res['ms_per_token']:.4f} ms a step "
-          f"({res['ms_per_token'] / bound:.1f}x) | {smi}", flush=True)
+          f"{n_units} times, analytic_cost's cache term {cache / 1e9:.3f} GB, the conv "
+          f"state written): byte bound {bound:.4f} ms against "
+          f"{res['ms_per_token']:.4f} ms a step ({res['ms_per_token'] / bound:.1f}x) "
+          f"| {smi}", flush=True)
+    roofline_line(smi, f"decode {label}", cfg, "decode", B, slots,
+                  res["ms_per_token"], bound, cost=cost)
     # a unit's states at B 16: five Mamba2 blocks' SSM and conv states, and
     # the shared block's KV cache (all 13 units: 1,908,408,320, 91,054,080
     # and 572,522,496 bytes)
     if (ssm, conv, kv) != (n_units * 146_800_640, n_units * 7_004_160,
                            n_units * 44_040_192):
         fail(f"decode {label}: state bytes ssm {ssm} conv {conv} kv {kv}")
+    if cache != 2 * ssm + conv + kv:
+        fail(f"decode {label}: analytic_cost's cache term {cache} is not the SSM "
+             f"state read and written, the conv state and the KV caches read "
+             f"({2 * ssm + conv + kv})")
 
 
 def xlstm_phase(torch, np, dev, kernels) -> None:
@@ -2361,7 +2528,7 @@ def xlstm_phase(torch, np, dev, kernels) -> None:
     dcfg = register(dc.replace(cfg, name=f"{cfg.name}-{XLSTM_DECODE['layers']}l",
                                n_layers=XLSTM_DECODE["layers"]))
     label = f"{cfg.name} {dcfg.n_layers} of {cfg.n_layers} layers"
-    res = decode_run(torch, kernels, smi, label, dcfg, XLSTM_DECODE)
+    res = decode_run(torch, kernels, smi, label, dcfg, XLSTM_DECODE, roofline=False)
     xlstm_step_bound(smi, label, dcfg, res)
     lap(f"(a) decode_main at {dcfg.n_layers} layers")
     model = build(dcfg)
@@ -2427,7 +2594,8 @@ def xlstm_step_bound(smi, label, cfg, res) -> None:
     """The decode state's bytes and a step's byte bound on xLSTM: the bf16
     weights but the embedding's, its B rows, and every state read and
     written (f32: an mLSTM block's C, n and m, an sLSTM block's c, n, h
-    and m)."""
+    and m), beside `roofline_line` (whose cache term reads the mLSTM's C
+    and the sLSTM's states once, held to the caches' bytes)."""
     from repro_torch.models.transformer import init_caches, layout_of, param_shapes
 
     _, n_units = layout_of(cfg)
@@ -2447,9 +2615,16 @@ def xlstm_step_bound(smi, label, cfg, res) -> None:
           f"{2 * weights / 1e9:.3f} GB, the states read and written): byte bound "
           f"{bound:.4f} ms against {res['ms_per_token']:.4f} ms a step "
           f"({res['ms_per_token'] / bound:.1f}x) | {smi}", flush=True)
+    cost = roofline_line(smi, f"decode {label}", cfg, "decode", B,
+                         XLSTM_DECODE["prompt"] + XLSTM_DECODE["gen"],
+                         res["ms_per_token"], bound)
     if mem != n_units * 67_108_864:  # all 12 units: 805,306,368
         fail(f"decode {label}: the mLSTM's C holds {mem} bytes, want "
              f"{n_units * 67_108_864}")
+    if cost.breakdown["bytes_cache"] != mem + state["u1"]:
+        fail(f"decode {label}: analytic_cost's cache term "
+             f"{cost.breakdown['bytes_cache']} is not the mLSTM's C and the "
+             f"sLSTM's states ({mem + state['u1']})")
 
 
 def xlstm_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
@@ -2629,7 +2804,10 @@ def whisper_decode(torch, np, dev, kernels, smi, cfg) -> dict:
     shapes = param_shapes(cfg)
     dec_w = sum(math.prod(v) for k, v in shapes.items() if k.startswith("dec/"))
     kv = sum(caches["self"][k].numel() * 2 for k in ("k", "v"))
-    step_bytes = 2 * (dec_w + math.prod(shapes["lm_head"]) + B * cfg.d_model) + kv + cross_bytes
+    # the caches read: analytic_cost's cache term (held to them below)
+    cost = run_cost(cfg, "decode", B, P + G)
+    step_bytes = (2 * (dec_w + math.prod(shapes["lm_head"]) + B * cfg.d_model)
+                  + cost.breakdown["bytes_cache"])
     bound, _ = bound_ms(step_bytes, 0.0)
     ms = res["gen_s"] * 1e3 / G
     print(f"decode {cfg.name} {cfg.n_encoder_layers} + {cfg.n_layers} layers: "
@@ -2643,9 +2821,15 @@ def whisper_decode(torch, np, dev, kernels, smi, cfg) -> dict:
           f"caches {kv / 1e9:.3f} GB, the cross K/V {cross_bytes} bytes): byte bound "
           f"{bound:.4f} ms ({ms / bound:.1f}x) max_memory_allocated={peak} "
           f"launches {json.dumps(n)} | {smi}", flush=True)
+    roofline_line(smi, f"decode {cfg.name} {cfg.n_encoder_layers} + {cfg.n_layers} "
+                  "layers", cfg, "decode", B, P + G, ms, bound, cost=cost)
     if p != W["n_params"] or cross_bytes != W["cross_bytes"]:
         fail(f"decode {cfg.name}: p = {p}, cross K/V {cross_bytes} bytes, want "
              f"{W['n_params']} and {W['cross_bytes']}")
+    if cost.breakdown["bytes_cache"] != kv + cross_bytes:
+        fail(f"decode {cfg.name}: analytic_cost's cache term "
+             f"{cost.breakdown['bytes_cache']} is not the self and cross caches' "
+             f"{kv + cross_bytes} bytes")
     if sum(n.values()):
         fail(f"decode {cfg.name}: encode and the stepped decode launched {n}; "
              "their attention is blockwise and plain contractions")
@@ -2824,12 +3008,13 @@ def stack_deltagrad(torch, np, dev, kernels, smi, arch, tag, cut, bars, note,
     return lcfg
 
 
-def decode_run(torch, kernels, smi, label, cfg, run) -> dict:
+def decode_run(torch, kernels, smi, label, cfg, run, roofline=True) -> dict:
     """`launch.serve.decode_main` on `cfg` (registered) at ``run``'s batch,
     prompt and gen under flash, with the launch counts zeroed just before
     and read after: prints its times, memory and launches against the
-    bf16 weights' byte bound, holds p and the stepped decode's launches,
-    and returns its results."""
+    bf16 weights' byte bound (and, with `roofline`, `roofline_line` beside
+    it), holds p and the stepped decode's launches, and returns its
+    results."""
     from repro_torch.launch import serve
     from repro_torch.models.attention_config import use_attention_impl
     from repro_torch.utils.tree import flatten_nested
@@ -2857,6 +3042,9 @@ def decode_run(torch, kernels, smi, label, cfg, run) -> dict:
           f"(per decode step of the batch; byte bound {bound:.4f} ms) "
           f"max_memory_allocated={peak} launches {json.dumps(n)} | {smi}",
           flush=True)
+    if roofline:
+        roofline_line(smi, f"decode {label}", cfg, "decode", run["batch"],
+                      run["prompt"] + run["gen"], res["ms_per_token"], bound)
     if p != run["n_params"] or dtypes != {torch.bfloat16}:
         fail(f"decode {label}: p = {p} in {dtypes}, want {run['n_params']} in bf16")
     if sum(n.values()):
@@ -4065,6 +4253,11 @@ def serve_phase(torch, np, dev, kernels, rcv1: dict, serial_ms: float) -> None:
     scans = [e["args"] for e in spans if e["name"] == "replay.scan"]
     ratio = statistics.median(a["roofline_ratio"] for a in scans) if scans \
         else float("nan")
+    # the device's time of each segment, from CUDA events read at the
+    # replay's end-of-replay sync (a span's own times are the host's)
+    timed = [a for a in scans if "device_s" in a]
+    device_ratio = statistics.median(a["device_roofline_ratio"] for a in timed) \
+        if timed else float("nan")
     totals = {}
     for e in spans:
         if e["name"].startswith(("store.", "serve.", "replay.", "online.")):
@@ -4079,7 +4272,10 @@ def serve_phase(torch, np, dev, kernels, rcv1: dict, serial_ms: float) -> None:
           f"{sv.get('lone_request_served')}; replay.scan {len(scans)} spans, "
           f"median measured/predicted {ratio:.6g} (median measured_s "
           f"{statistics.median(a['measured_s'] for a in scans) if scans else float('nan'):.6g}, "
-          f"pred_s {statistics.median(a['pred_s'] for a in scans) if scans else float('nan'):.6g}); "
+          f"pred_s {statistics.median(a['pred_s'] for a in scans) if scans else float('nan'):.6g}; "
+          f"device: {len(timed)} spans timed, median device/predicted "
+          f"{device_ratio:.6g}, median device_s "
+          f"{statistics.median(a['device_s'] for a in timed) if timed else float('nan'):.6g}); "
           f"store.* spans (count, ms): {json.dumps(store) if store else 'none (stacked tier)'}; "
           f"coalesce {json.dumps(written.get('coalesce'))}; cli wall_s "
           f"{cli_s:.2f}; launches {json.dumps(n)}", flush=True)
@@ -4097,6 +4293,9 @@ def serve_phase(torch, np, dev, kernels, rcv1: dict, serial_ms: float) -> None:
              f"{failed}, lone tail {sv.get('lone_request_served')}")
     if not {"serve.batch", "replay.scan", "replay.explicit"} <= names:
         fail(f"serve rcv1: trace holds {sorted(names)}")
+    if len(timed) != len(scans):
+        fail(f"serve rcv1: {len(timed)} of {len(scans)} replay.scan spans carry "
+             "their device time")
     for k in RESIDENT:
         if n[k] <= 0:
             fail(f"serve rcv1: {k} was not launched")
@@ -4345,6 +4544,12 @@ def whisper_main() -> int:
                                                             kernel_table()))
 
 
+def examples_main() -> int:
+    """``--examples``: phase 20 alone."""
+    return opt_in_main(lambda torch, np, dev: examples_phase(torch, np, dev,
+                                                             kernel_table()))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--hybrid"]:
         sys.exit(hybrid_main())
@@ -4354,6 +4559,8 @@ if __name__ == "__main__":
         sys.exit(xlstm_main())
     if sys.argv[1:] == ["--whisper"]:
         sys.exit(whisper_main())
+    if sys.argv[1:] == ["--examples"]:
+        sys.exit(examples_main())
     if sys.argv[1:2] == ["--xlstm-dg"] and len(sys.argv) == 3:
         sys.exit(xlstm_dg_main(sys.argv[2]))
     if sys.argv[1:2] == ["--moe-dg"] and len(sys.argv) == 3:

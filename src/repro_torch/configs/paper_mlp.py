@@ -4,12 +4,20 @@
 0.1 after 10 iterations, deterministic GD, DeltaGrad run with the
 Algorithm-4 non-convex guard (T0 = 2, first quarter of iterations as
 burn-in, curvature threshold 1e-8).
+
+`CONFIG` is the recipe the port's paper-MLP paths read; `MODEL_CONFIG` is
+the reference's registry entry for the same model (``paper-mlp``), field
+for field, so that `configs.registry.all_archs` names what the
+reference's does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Tuple
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import register
 
 
 @dataclass(frozen=True)
@@ -37,3 +45,19 @@ class PaperMLPConfig:
 
 
 CONFIG = PaperMLPConfig()
+
+MODEL_CONFIG = register(
+    ModelConfig(
+        name="paper-mlp",
+        family="simple",
+        n_layers=2,
+        d_model=300,
+        n_heads=0,
+        n_kv_heads=0,
+        d_ff=300,
+        vocab=10,
+        mlp="none",
+        source="DeltaGrad ICML 2020 §4.1 (MNIST^n)",
+        notes="hyperparams: l2=1e-3, lr=(0:0.2, 10:0.1), T0=2, j0=T/4, guard on",
+    )
+)

@@ -63,7 +63,10 @@ reference's places, with its args — ``replay.schedule_build``,
 roofline ``pred_s``), ``replay.guard_retry`` and ``replay.commit`` — and
 one finished replay's counters in the metrics registry.  While tracing is
 off a span is a shared no-op and the roofline is not computed; no span
-synchronises with the card.
+synchronises with the card.  A span's own times are the host's (on the
+card, dispatch); traced on the card, each ``replay.scan`` also gets its
+segment's device time (``device_s``, ``device_roofline_ratio``) from two
+CUDA events around it, read at the replay's end-of-replay sync.
 """
 
 from __future__ import annotations
@@ -390,6 +393,28 @@ def run_baseline(objective, ds: Dataset, meta: HistoryMeta,
 # --------------------------------------------------------------------------
 
 
+class _DeviceTimed:
+    """A span with a CUDA event recorded on the current stream just before
+    it opens and just after it closes; the pair goes to `sink`."""
+
+    __slots__ = ("span", "sink", "start")
+
+    def __init__(self, span, sink: list):
+        self.span, self.sink, self.start = span, sink, None
+
+    def __enter__(self):
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return self.span.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        self.span.__exit__(*exc)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.sink.append((self.span, self.start, end))
+        return False
+
+
 class _Steps:
     """What every step of one replay or online request reads: the gradient
     function, the history's store, the device columns and the schedule
@@ -403,6 +428,8 @@ class _Steps:
         self.mom = float(momentum)
         self._zeros: Optional[torch.Tensor] = None
         self._true: Optional[torch.Tensor] = None
+        # traced segments on the card: (span, start event, end event)
+        self.scan_events: List[Tuple[Any, Any, Any]] = []
 
     def zero_vel(self, params: FlatParams) -> Optional[torch.Tensor]:
         """vel_0 = 0 for a heavy-ball history, None for plain SGD."""
@@ -431,11 +458,27 @@ class _Steps:
 
     def scan_span(self, params: FlatParams, a: int, b: int):
         """The ``replay.scan`` span of approx segment [a, b) (the
-        subclasses hold ``cfg``)."""
-        return obs_trace.span(
+        subclasses hold ``cfg``).  Traced on the card, two CUDA events
+        bracket it, recorded outside the span so that it stays sync-free;
+        `read_device_times` reads them at the end-of-replay sync."""
+        sp = obs_trace.span(
             "replay.scan", t0=a, t1=b,
             pred_s=_scan_pred(params.numel, b - a, self.sched.r_pad,
                               self.cfg.history_size, bool(self.mom)))
+        if sp is obs_trace.NOOP_SPAN or params.flat.device.type != "cuda":
+            return sp
+        return _DeviceTimed(sp, self.scan_events)
+
+    def read_device_times(self) -> None:
+        """Once the replay has synced: each traced segment's device time
+        (``device_s``, and ``device_roofline_ratio``, device_s over
+        pred_s) set on its span beside its host ``measured_s``."""
+        for sp, start, end in self.scan_events:
+            device_s = start.elapsed_time(end) / 1e3
+            sp.set(device_s=device_s)
+            if sp.args.get("pred_s"):
+                sp.set(device_roofline_ratio=device_s / float(sp.args["pred_s"]))
+        self.scan_events.clear()
 
     @staticmethod
     def rows(W, G, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -649,6 +692,7 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
     stats.grad_examples_baseline = int(base.sum())
     _sync(dev)
     stats.wall_time_s = time.perf_counter() - t_start
+    rp.read_device_times()
     stats.extra.update(buffer_admitted=rp.buffer.admitted,
                        buffer_rejected=rp.buffer.rejected, store=store.kind,
                        segments=max(1, len(seg_flags)), device=str(dev),
@@ -898,6 +942,7 @@ def run_online_request(grad_fn, store: HistoryStore, cols,
     stats.grad_examples_baseline = int(base.sum())
     _sync(dev)
     stats.wall_time_s = time.perf_counter() - t_start
+    on.read_device_times()
     stats.extra.update(store=store.kind, hbm_high_water=store.hbm_high_water(),
                        segments=max(1, len(seg_flags)), device=str(dev))
     if isinstance(store, SegmentStreamer):

@@ -262,6 +262,7 @@ class UnlearnerSession:
                     remat: bool = False, loss_chunk: Optional[int] = None,
                     attn_impl: Optional[str] = None, init_seed: int = 1,
                     dtype: Optional[torch.dtype] = None,
+                    params0: Optional[FlatParams] = None,
                     device=None) -> "UnlearnerSession":
         """A session from a registry model name.
 
@@ -270,8 +271,9 @@ class UnlearnerSession:
         (a smaller variant of the same architecture).  The model's loss
         becomes the objective through `Objective.from_model` (remat,
         loss_chunk, attn_impl and the compute dtype are forwarded), the
-        initial params are ``model.init(init_seed)`` on `device`, and the
-        built `models.registry.Model` is kept on ``session.model``."""
+        initial params are ``model.init(init_seed)`` on `device` unless
+        `params0` is given (weights carried across, say), and the built
+        `models.registry.Model` is kept on ``session.model``."""
         from repro_torch.configs.registry import get_config
         from repro_torch.models.registry import build
 
@@ -283,8 +285,10 @@ class UnlearnerSession:
         objective = Objective.from_model(
             model, remat=remat, loss_chunk=loss_chunk, l2=l2,
             attn_impl=attn_impl, dtype=dtype)
-        sess = cls(objective, model.init(init_seed, device=dev), dataset,
-                   config or UnlearnerConfig(), device=dev)
+        if params0 is None:
+            params0 = model.init(init_seed, device=dev)
+        sess = cls(objective, params0, dataset, config or UnlearnerConfig(),
+                   device=dev)
         sess.model = model
         return sess
 

@@ -42,7 +42,8 @@ from repro_torch.models.attention_config import (attention_impl,
 from repro_torch.models.layers import (blockwise_attention, decode_attention,
                                        dense_init, gqa_apply, gqa_cache_init,
                                        gqa_decode, gqa_init, mlp_apply,
-                                       mlp_init, rmsnorm, rmsnorm_init)
+                                       mlp_init, norm_to_matmuls,
+                                       residual_norm, rmsnorm, rmsnorm_init)
 from repro_torch.models.transformer import (_lm_head, _slice, cast_params,
                                             row_ce)
 from repro_torch.utils.tree import FlatParams, flatten_nested, nested
@@ -142,7 +143,7 @@ def _cross_apply(p, x: torch.Tensor, memory: torch.Tensor,
     B, S, _ = x.shape
     Sm = memory.shape[1]
     H, dh = cfg.n_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    q = (x.to(p["wq"].dtype) @ p["wq"]).reshape(B, S, H, dh)
     k = (memory @ p["wk"]).reshape(B, Sm, H, dh)
     v = (memory @ p["wv"]).reshape(B, Sm, H, dh)
     o = blockwise_attention(q, k, v, causal=False)
@@ -156,15 +157,17 @@ def _attn(p, h: torch.Tensor, cfg: ModelConfig, causal: bool) -> torch.Tensor:
 
 
 def _enc_layer(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = h + _attn(p["attn"], rmsnorm(p["ln1"], h), cfg, causal=False)
-    return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h), cfg.mlp)
+    h, n = residual_norm(p["ln2"], h, _attn(p["attn"], norm_to_matmuls(p["ln1"], h),
+                                            cfg, causal=False))
+    return h + mlp_apply(p["mlp"], n, cfg.mlp)
 
 
 def _dec_layer(p, h: torch.Tensor, memory: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    h = h + _attn(p["self"], rmsnorm(p["ln1"], h), cfg, causal=True)
-    h = h + _cross_apply(p["cross"], rmsnorm(p["ln_x"], h), memory, cfg)
-    return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h), cfg.mlp)
+    h, n = residual_norm(p["ln_x"], h, _attn(p["self"], norm_to_matmuls(p["ln1"], h),
+                                             cfg, causal=True))
+    h, n = residual_norm(p["ln2"], h, _cross_apply(p["cross"], n, memory, cfg))
+    return h + mlp_apply(p["mlp"], n, cfg.mlp)
 
 
 def _run_layers(layer, stacked, n: int, h: torch.Tensor, cfg: ModelConfig,
@@ -304,12 +307,12 @@ def decode_step(params: Mapping[str, Any], batch, caches, cfg: ModelConfig,
                             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                             d_head=dh, rope_theta=cfg.rope_theta)
         lens.append(new["len"])
-        x = x + a
+        x, n = residual_norm(blk["ln_x"], x, a)
         B = x.shape[0]
-        q = (rmsnorm(blk["ln_x"], x)[:, 0] @ blk["cross"]["wq"]).reshape(B, H, dh)
+        q = (n[:, 0].to(blk["cross"]["wq"].dtype) @ blk["cross"]["wq"]).reshape(B, H, dh)
         o = decode_attention(q, ck[u], cv[u], ck.shape[2])
-        x = x + o.reshape(B, 1, H * dh) @ blk["cross"]["wo"]
-        x = x + mlp_apply(blk["mlp"], rmsnorm(blk["ln2"], x), cfg.mlp)
+        x, n = residual_norm(blk["ln2"], x, o.reshape(B, 1, H * dh) @ blk["cross"]["wo"])
+        x = x + mlp_apply(blk["mlp"], n, cfg.mlp)
     h = rmsnorm(p["final_norm"], x, cfg.norm_eps)
     logits = _lm_head(p, h[:, 0], cfg)
     return logits, {"self": {**caches["self"], "len": torch.stack(lens)},

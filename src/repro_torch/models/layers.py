@@ -19,7 +19,7 @@ GQA stack.  Conventions, as there:
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,11 +44,95 @@ def rmsnorm_init(d: int, device=None) -> Dict[str, torch.Tensor]:
     return {"scale": torch.ones(d, device=device)}
 
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+class _RoundValue(torch.autograd.Function):
+    """x's values rounded to `dtype`, kept in x's dtype; the gradient
+    passes through unrounded."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _RoundGrad(torch.autograd.Function):
+    """x as it is; its gradient rounded to `dtype` (and kept in x's)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
+def _rms(params, xf: torch.Tensor, eps: float) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * params["scale"]  # scale: f32 math
-    return out.to(x.dtype)
+    return xf * torch.rsqrt(var + eps) * params["scale"]  # scale: f32 math
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return _rms(params, x.float(), eps).to(x.dtype)
+
+
+class _FanOut(torch.autograd.Function):
+    """x to `n` uses (views, no copy); their gradients summed in f32 in
+    the uses' order and rounded once to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        s = gs[0].float()
+        for g in gs[1:]:
+            s = s + g.float()
+        return s.to(gs[0].dtype), None
+
+
+def fan_out(x: torch.Tensor, n: int):
+    """x for `n` uses whose gradients XLA sums in f32 before it rounds
+    them to x's dtype (autograd would add them one rounded bf16 add at a
+    time): `_FanOut` under autograd, else x itself n times."""
+    if torch.is_grad_enabled() and x.requires_grad and x.dtype != torch.float32:
+        return _FanOut.apply(x, n)
+    return (x,) * n
+
+
+def _to_matmuls(out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A norm's f32 output for several matmuls: its values rounded to
+    `dtype`.  Under autograd it stays f32 with its gradient unrounded, and
+    each matmul casts it on its own (`gqa_apply`, `mlp_apply`), so the
+    matmuls' input gradients, each rounded to `dtype`, are summed in f32
+    and reach the norm unrounded: the order and roundings of XLA's fused
+    backward of the reference (the last two uses' sum rounded first for
+    three, `gqa_apply`).  Without autograd, the values in `dtype`."""
+    if torch.is_grad_enabled() and out.requires_grad and out.dtype != dtype:
+        return _RoundValue.apply(out, dtype)
+    return out.to(dtype)
+
+
+def norm_to_matmuls(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """`rmsnorm` of x for the matmuls that read it (`_to_matmuls`)."""
+    return _to_matmuls(_rms(params, x.float(), eps), x.dtype)
+
+
+def residual_norm(params, x: torch.Tensor, h: torch.Tensor,
+                  eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + h, rmsnorm(x + h)) as the jitted reference computes them: XLA
+    fuses the add into the norm's f32 convert, so the norm reads the sum
+    before it rounds to x's dtype, and only the residual stream is
+    rounded (the same in f32).  Backward, as XLA's: the norm's input
+    gradient is rounded to x's dtype before it joins the residual's, and
+    the norm's output goes to its matmuls by `_to_matmuls`."""
+    s = x.float() + h  # h promoted to f32 exactly, in the add's kernel
+    n = _rms(params, _RoundGrad.apply(s, x.dtype), eps)
+    return s.to(x.dtype), _to_matmuls(n, x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -215,9 +299,13 @@ def gqa_apply(params, x: torch.Tensor, *, n_heads: int, n_kv: int,
               window: int = 0, qk_norm: bool = False,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, n_heads, d_head)
-    k = (x @ params["wk"]).reshape(B, S, n_kv, d_head)
-    v = (x @ params["wv"]).reshape(B, S, n_kv, d_head)
+    # cast per use (`_to_matmuls`): q's input gradient joins k's and v's,
+    # summed first, as the reference's cotangents sum
+    dt = params["wq"].dtype
+    xq, xkv = x.to(dt), x.to(dt)
+    q = (xq @ params["wq"]).reshape(B, S, n_heads, d_head)
+    k = (xkv @ params["wk"]).reshape(B, S, n_kv, d_head)
+    v = (xkv @ params["wv"]).reshape(B, S, n_kv, d_head)
     if qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -293,13 +381,82 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
     raise ValueError(kind)
 
 
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as JAX uses it against an array of `dtype`:
+    rounded to that dtype first."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+class _Logistic(torch.autograd.Function):
+    """The reference's ``lax.logistic``: its value op by op, its gradient
+    by JAX's rule for the primitive, g * (ans * (1 - ans))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        return g * (ans * (1 - ans))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic as XLA computes the reference's ``jax.nn.sigmoid``:
+    exp, the sum and the reciprocal each rounded to x's dtype
+    (``torch.sigmoid`` rounds once, and parts from it in about a third of
+    bf16 outputs); its gradient is JAX's rule for the primitive, each op
+    rounded alike."""
+    return _Logistic.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU as the reference's ``jax.nn.silu`` rounds in bf16: `sigmoid`,
+    then the product in x's dtype (``F.silu`` rounds once, and parts from
+    it in about a third of bf16 outputs)."""
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``, ``x * (0.5 * (1 + tanh(c (x
+    + 0.044715 x^3))))`` with c = sqrt(2 / pi), each constant rounded to
+    x's dtype and each op rounded to it (``F.gelu(approximate="tanh")``
+    rounds once, and parts from it in about two in five bf16 outputs)."""
+    c = _rounded(math.sqrt(2 / math.pi), x.dtype)
+    a = _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * x ** 3))))
+
+
+def ffn_silu(x: torch.Tensor) -> torch.Tensor:
+    """The FFNs' SiLU: `silu` where XLA rounds the reference's op by op
+    (bf16), ``F.silu``'s one rounding in f32 (neither f32 form is the
+    reference's bit for bit; they part from it by at most an ulp)."""
+    return F.silu(x) if x.dtype == torch.float32 else silu(x)
+
+
+def ffn_gelu(x: torch.Tensor) -> torch.Tensor:
+    """The FFNs' tanh GeLU, chosen as `ffn_silu` is."""
+    return F.gelu(x, approximate="tanh") if x.dtype == torch.float32 else gelu_tanh(x)
+
+
+def ffn_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The MoE shared gate's logistic, chosen as `ffn_silu` is."""
+    return torch.sigmoid(x) if x.dtype == torch.float32 else sigmoid(x)
+
+
 def mlp_apply(params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The FFN; in bf16 its activations round op by op as the reference's
+    do under XLA (`ffn_silu`, `ffn_gelu`).  x is cast to the weights'
+    dtype at each use (`_to_matmuls`)."""
+    dt = params["w_up"].dtype
     if kind == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        h = ffn_silu(x.to(dt) @ params["w_gate"]) * (x.to(dt) @ params["w_up"])
     elif kind == "relu_sq":
-        h = torch.square(F.relu(x @ params["w_up"]))
+        h = torch.square(F.relu(x.to(dt) @ params["w_up"]))
     elif kind == "gelu":
-        h = F.gelu(x @ params["w_up"], approximate="tanh")
+        h = ffn_gelu(x.to(dt) @ params["w_up"])
     else:
         raise ValueError(kind)
     return h @ params["w_down"]

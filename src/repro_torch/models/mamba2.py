@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init, silu
 
 
 def _dims(d_model: int, cfg: SSMConfig) -> Tuple[int, int, int]:
@@ -88,13 +88,6 @@ def _split_in(params, x: torch.Tensor, d_model: int, cfg: SSMConfig):
             zxbcdt[..., 2 * d_inner + 2 * gn:])
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """SiLU as the reference's ``jax.nn.silu`` rounds in bf16: exp, the
-    sum, the reciprocal and the product each in x's dtype (``F.silu``
-    rounds once, and parts from it in about a third of bf16 outputs)."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def _causal_conv(conv_w: torch.Tensor, conv_b: torch.Tensor,
                  u: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over u (B, L, C) with kernel (K, C), then
@@ -104,7 +97,7 @@ def _causal_conv(conv_w: torch.Tensor, conv_b: torch.Tensor,
     out = u_pad[:, 0:L] * conv_w[0]
     for i in range(1, K):
         out = out + u_pad[:, i:i + L] * conv_w[i]
-    return _silu(out + conv_b)
+    return silu(out + conv_b)
 
 
 def cumsum_by_adds(a: torch.Tensor) -> torch.Tensor:
@@ -202,7 +195,7 @@ def mamba2_apply(params, x: torch.Tensor, d_model: int,
     dt = F.softplus(dt.float() + params["dt_bias"])  # (B, L, H) f32
     y, _ = ssd_chunked(xh, dt, params["a_log"], bg, cg, cfg)
     y = y + params["d_skip"][None, None, :, None] * xh
-    y = rmsnorm(params["out_norm"], y.reshape(Bsz, L, d_inner) * _silu(z))
+    y = rmsnorm(params["out_norm"], y.reshape(Bsz, L, d_inner) * silu(z))
     return y @ params["w_out"]
 
 
@@ -236,7 +229,7 @@ def mamba2_decode(params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     window = torch.cat([conv.to(wdt), u_new.to(wdt)], dim=1)
     conv_out = torch.einsum("bkc,kc->bc", window.float(),
                             params["conv_w"].float()) + params["conv_b"]
-    u = _silu(conv_out)  # (B, conv_dim) f32
+    u = silu(conv_out)  # (B, conv_dim) f32
     conv.copy_(window[:, 1:])
 
     b_t = u[..., d_inner:d_inner + gn].reshape(Bsz, cfg.n_groups, cfg.d_state)
@@ -254,5 +247,5 @@ def mamba2_decode(params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     y = torch.einsum("bhpn,bhn->bhp", ssm, c_heads)
     y = y + params["d_skip"][None, :, None] * xh
     y = y.reshape(Bsz, d_inner).to(x.dtype)
-    y = rmsnorm(params["out_norm"], y * _silu(z[:, 0]))
+    y = rmsnorm(params["out_norm"], y * silu(z[:, 0]))
     return (y @ params["w_out"])[:, None, :], {"conv": conv, "ssm": ssm}

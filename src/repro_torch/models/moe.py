@@ -43,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
+from repro_torch.models.layers import (dense_init, fan_out, ffn_sigmoid,
+                                      ffn_silu, mlp_apply, mlp_init)
 
 
 def moe_init(generator: torch.Generator, d_model: int,
@@ -136,7 +137,10 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig
     G, T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     dev = x.device
-    probs, gate_vals, gate_idx = route(params, x, k)  # (G, T, E|k|k)
+    # x's uses: the router, the dispatch, the shared gate, the shared
+    # experts; their input gradients summed in f32 (`layers.fan_out`)
+    uses = fan_out(x, 4 if cfg.num_shared > 0 else 2)
+    probs, gate_vals, gate_idx = route(params, uses[0], k)  # (G, T, E|k|k)
 
     # load-balancing aux loss (Switch), per group
     me = probs.mean(dim=1)
@@ -165,17 +169,17 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig
                  torch.arange(G * N, device=dev))
     src = src[:R]
 
-    x_rep = x.unsqueeze(2).expand(G, T, k, d).reshape(G * N, d)
+    x_rep = uses[1].unsqueeze(2).expand(G, T, k, d).reshape(G * N, d)
     buf = _RowGather.apply(x_rep, src, dst).view(E, G * (C + 1), d)
-    h = F.silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
+    h = ffn_silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(buf, params["w_up"])
     y = torch.bmm(h, params["w_down"]).reshape(R, d)
     tok_y = _RowGather.apply(y, dst, src)  # (G N, d), dropped rows zero
     contrib = gate_vals.reshape(G * N, 1) * tok_y.float()
     out = contrib.view(G, T, k, d).sum(dim=2)
 
     if cfg.num_shared > 0:
-        shared = mlp_apply(params["shared"], x, "swiglu")
-        sg = torch.sigmoid(x @ params["shared_gate"])
+        shared = mlp_apply(params["shared"], uses[3], "swiglu")
+        sg = ffn_sigmoid(uses[2] @ params["shared_gate"])
         out = out + (sg * shared).float()
     return out.to(x.dtype), aux
 
@@ -186,7 +190,7 @@ def moe_ref(params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     d = x.shape[-1]
     xt = x.reshape(-1, d)
     _, gate_vals, gate_idx = route(params, xt, cfg.top_k)
-    h = F.silu(torch.einsum("td,edf->tef", xt, params["w_gate"])) * torch.einsum(
+    h = ffn_silu(torch.einsum("td,edf->tef", xt, params["w_gate"])) * torch.einsum(
         "td,edf->tef", xt, params["w_up"])
     y_all = torch.einsum("tef,efd->ted", h, params["w_down"])  # (T, E, d)
     out = torch.zeros(xt.shape, device=x.device)
@@ -195,6 +199,6 @@ def moe_ref(params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
         out = out + gate_vals[:, j:j + 1] * yj
     if cfg.num_shared > 0:
         shared = mlp_apply(params["shared"], xt, "swiglu")
-        sg = torch.sigmoid(xt @ params["shared_gate"])
+        sg = ffn_sigmoid(xt @ params["shared_gate"])
         out = out + (sg * shared).float()
     return out.reshape(x.shape).to(x.dtype)

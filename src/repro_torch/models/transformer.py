@@ -66,7 +66,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention_config import (attention_impl,
                                                  use_attention_impl)
 from repro_torch.models.layers import (gqa_apply, gqa_cache_init, gqa_decode,
-                                       gqa_init, mlp_apply, mlp_init, rmsnorm,
+                                       gqa_init, mlp_apply, mlp_init,
+                                       norm_to_matmuls, residual_norm, rmsnorm,
                                        rmsnorm_init)
 from repro_torch.models.mamba2 import (mamba2_apply, mamba2_cache_init,
                                        mamba2_decode, mamba2_init,
@@ -315,6 +316,7 @@ def _ffn(p, h: torch.Tensor, cfg: ModelConfig, per_row: bool):
     as one; aux is then (B,) or (1,).  A dense FFN's aux is None."""
     if cfg.moe is None:
         return mlp_apply(p, h, cfg.mlp), None
+    h = h.to(p["w_up"].dtype)  # the norm's output, one cast for every use
     B, S, d = h.shape
     out, aux = moe_apply(p, h if per_row else h.reshape(1, B * S, d), cfg.moe)
     return out.reshape(B, S, d), aux
@@ -322,7 +324,8 @@ def _ffn(p, h: torch.Tensor, cfg: ModelConfig, per_row: bool):
 
 def _block_apply(kind: str, p, x: torch.Tensor, cfg: ModelConfig,
                  per_row: bool):
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind in _RECURRENT or cfg.mla:
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "mamba2":
         return x + mamba2_apply(p["mixer"], h, cfg.d_model, cfg.ssm), None
     if kind == "mlstm":
@@ -333,11 +336,11 @@ def _block_apply(kind: str, p, x: torch.Tensor, cfg: ModelConfig,
         h = mla_apply(p["mixer"], h, n_heads=cfg.n_heads, cfg=cfg.mla,
                       rope_theta=cfg.rope_theta, window=cfg.attn_window)
     else:
-        h = gqa_apply(p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        h = gqa_apply(p["mixer"], norm_to_matmuls(p["ln1"], x, cfg.norm_eps),
+                      n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                       d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
                       window=cfg.attn_window, qk_norm=cfg.qk_norm)
-    x = x + h
-    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    x, h2 = residual_norm(p["ln2"], x, h, cfg.norm_eps)
     out, aux = _ffn(p["mlp"], h2, cfg, per_row)
     return x + out, aux
 
@@ -496,8 +499,7 @@ def _block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ModelConfig):
                               n_kv=cfg.n_kv_heads, d_head=cfg.head_dim,
                               rope_theta=cfg.rope_theta, window=cfg.attn_window,
                               qk_norm=cfg.qk_norm)
-    x = x + h
-    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    x, h2 = residual_norm(p["ln2"], x, h, cfg.norm_eps)
     out, _ = _ffn(p["mlp"], h2, cfg, per_row=False)
     return x + out, cache
 

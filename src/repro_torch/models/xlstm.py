@@ -27,7 +27,7 @@ As in the reference:
     up-projections stay in it; the cells run in f32 and their output is
     cast back; SiLU is ``x * (1 / (1 + exp(-x)))`` and the tanh GeLU the
     reference's formula, with every op rounded to the compute dtype
-    (`mamba2._silu`, XLA's bf16 logistic; `_gelu_tanh`);
+    (`layers.silu`, XLA's bf16 logistic; `layers.gelu_tanh`);
   * Q = min(chunk, L), and L must divide by Q (a `ValueError` here).
 
 The sLSTM's ``w_in`` gives z | i | f | o blocks of d, reordered to heads x
@@ -48,8 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMConfig
-from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init
-from repro_torch.models.mamba2 import _silu
+from repro_torch.models.layers import (dense_init, gelu_tanh, rmsnorm,
+                                      rmsnorm_init, silu)
 
 
 def _mlstm_dims(d_model: int, n_heads: int, cfg: XLSTMConfig) -> Tuple[int, int]:
@@ -99,7 +99,7 @@ def _mlstm_out(params, h: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """The cell's output h (B, L, d_inner), in the compute dtype, normed,
     gated by SiLU(z) and projected down."""
     h = rmsnorm(params["cell_norm"], h)
-    return (h * _silu(z)) @ params["w_down"]
+    return (h * silu(z)) @ params["w_down"]
 
 
 def mlstm_parallel(params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -265,28 +265,12 @@ def slstm_cell_step(gates: torch.Tensor, state):
     return c_new, n_new, h_new, m_new
 
 
-def _rounded(value: float, dtype: torch.dtype) -> float:
-    """A Python constant as JAX uses it against an array of `dtype`:
-    rounded to that dtype first."""
-    return float(torch.tensor(value, dtype=dtype))
-
-
-def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu(x, approximate=True)``, ``x * (0.5 * (1 + tanh(c (x
-    + 0.044715 x^3))))`` with c = sqrt(2 / pi), each constant rounded to
-    x's dtype and each op rounded to it (``F.gelu(approximate="tanh")``
-    rounds once, and parts from it in about two in five bf16 outputs)."""
-    c = _rounded(math.sqrt(2 / math.pi), x.dtype)
-    a = _rounded(0.044715, x.dtype)
-    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * x ** 3))))
-
-
 def _slstm_out(params, h: torch.Tensor) -> torch.Tensor:
     """The cell's output h (B, L, d), in the compute dtype, normed and
     through the gated GeLU MLP."""
     h = rmsnorm(params["cell_norm"], h)
     u, g = torch.chunk(h @ params["mlp_up"], 2, dim=-1)
-    return (u * _gelu_tanh(g)) @ params["mlp_down"]
+    return (u * gelu_tanh(g)) @ params["mlp_down"]
 
 
 def slstm_apply(params, x: torch.Tensor, n_heads: int) -> torch.Tensor:

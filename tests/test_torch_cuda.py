@@ -86,6 +86,37 @@ def test_kernels_match_plain_versions_on_card(cuda, m, p, dtype):
 
 
 @pytest.mark.cuda
+def test_traced_replay_spans_carry_device_time(cuda):
+    """Traced on the card, every ``replay.scan`` span carries its segment's
+    device time from CUDA events read at the end-of-replay sync, and the
+    traced replay is bitwise the untraced one (the spans hold no sync)."""
+    from repro_torch.obs import trace
+
+    obj = mlp_objective(l2=1e-3)
+    ds = multiclass_classification(600, 12, 3, seed=1)
+    ch = np.random.default_rng(3).choice(600, size=9, replace=False)
+    meta = HistoryMeta(n=600, batch_size=200, seed=2, steps=20,
+                       lr_schedule=((0, 0.2), (10, 0.1)))
+    cfg = dg.DeltaGradConfig(period=2, burn_in=5, history_size=2,
+                             guard=True, curvature_eps=1e-8)
+    p0 = mlp_init(12, 16, 3, generator=torch.Generator().manual_seed(0),
+                  device=cuda)
+    _, hist = dg.sgd_train_with_cache(obj, p0, ds, meta, device=cuda)
+    w0, _ = dg.deltagrad_retrain(obj, hist, ds, ch, cfg, device=cuda)
+    tr = trace.enable(trace.Tracer())
+    try:
+        w1, st = dg.deltagrad_retrain(obj, hist, ds, ch, cfg, device=cuda)
+    finally:
+        trace.disable()
+    scans = [e["args"] for e in tr.events() if e["name"] == "replay.scan"]
+    assert scans and st.approx_steps > 0
+    for a in scans:
+        assert a["device_s"] > 0 and a["measured_s"] > 0
+        assert a["device_roofline_ratio"] == a["device_s"] / a["pred_s"]
+    assert torch.equal(w0.flat, w1.flat)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["delete", "add"])
 def test_replay_on_card_matches_cpu(cuda, mode):
     obj = mlp_objective(l2=1e-3)

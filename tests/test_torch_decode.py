@@ -128,49 +128,38 @@ def test_full_size_parameter_counts_match(arch):
     pytest.param(dict(family="hybrid", layout_unit=("mamba2",) * 5 + ("attn_shared",)),
                  (dict(ssm=SSMConfig()), dict(ssm=JSSMConfig())),
                  (("mamba2",) * 5 + ("attn_shared",), 1), id="change2-9c"),
+    pytest.param(dict(family="ssm", layout_unit=("mlstm", "slstm"), mlp="none"),
+                 (dict(xlstm=XLSTMConfig()), dict(xlstm=JXLSTMConfig())),
+                 (("mlstm", "slstm"), 3), id="change3-9d"),
+    pytest.param(dict(family="audio", frontend="frames", mlp="gelu",
+                      n_encoder_layers=2), ({}, {}), None, id="change4-9e"),
 ])
 def test_layout_takes_the_ported_families(change, ported, layout):
     """A family once refused by `layout_of` is taken now, and agrees with
-    the reference: the layout, the built model's config, the count."""
-    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=6, **change,
-                              **ported[0])
+    the reference: the layout, the built model's config, the count.  An
+    xLSTM unit (9d) raises only without its XLSTMConfig; the
+    encoder-decoder family (9e) is what `build` gives as the enc-dec model
+    (`models.encdec`, with the reference's parameter count), and
+    `layout_of` sends it there."""
+    bare = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=6, **change)
+    cfg = dataclasses.replace(bare, **ported[0])
     ref = dataclasses.replace(j_get_config("internlm2-1.8b"), n_layers=6, **change,
                               **ported[1])
+    if "xlstm" in ported[0]:
+        with pytest.raises(ValueError, match="XLSTMConfig"):
+            tt.layout_of(bare)
+        with pytest.raises(ValueError, match="XLSTMConfig"):
+            build(bare)
+    if layout is None:
+        model = build(cfg)
+        assert isinstance(model, t_registry.EncDecModel) and model.cfg == cfg
+        assert count_params(cfg) == j_count_params(ref)
+        with pytest.raises(ValueError, match=r"models\.encdec"):
+            tt.layout_of(cfg)
+        return
     assert tt.layout_of(cfg) == jt.layout_of(ref) == layout
     assert build(cfg).cfg == cfg
     assert count_params(cfg) == j_count_params(ref)
-
-
-@pytest.mark.parametrize("change,item", [  # ids as before the MoE family (9a)
-    pytest.param(dict(family="ssm", layout_unit=("mlstm", "slstm"), mlp="none"), "9d",
-                 id="change3-9d"),
-    pytest.param(dict(family="audio", frontend="frames", mlp="gelu",
-                      n_encoder_layers=2), "9e", id="change4-9e"),
-])
-def test_layout_raises_for_the_families_not_ported(change, item):
-    """The families this test once refused are taken: xLSTM (9d), whose
-    `layout_of` agrees with the reference's and raises only for an xLSTM
-    unit without its XLSTMConfig, and the encoder-decoder family (9e),
-    which `build` gives as the enc-dec model (`models.encdec`, with the
-    reference's parameter count) and `layout_of` sends there."""
-    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=6, **change)
-    ref = dataclasses.replace(j_get_config("internlm2-1.8b"), n_layers=6, **change)
-    if item == "9d":
-        with pytest.raises(ValueError, match="XLSTMConfig"):
-            tt.layout_of(cfg)
-        with pytest.raises(ValueError, match="XLSTMConfig"):
-            build(cfg)
-        ported = dataclasses.replace(cfg, xlstm=XLSTMConfig())
-        ref = dataclasses.replace(ref, xlstm=JXLSTMConfig())
-        assert tt.layout_of(ported) == jt.layout_of(ref) == (("mlstm", "slstm"), 3)
-        assert build(ported).cfg == ported
-        assert count_params(ported) == j_count_params(ref)
-        return
-    model = build(cfg)
-    assert isinstance(model, t_registry.EncDecModel) and model.cfg == cfg
-    assert count_params(cfg) == j_count_params(ref)
-    with pytest.raises(ValueError, match=r"models\.encdec"):
-        tt.layout_of(cfg)
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b",

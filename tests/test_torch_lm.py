@@ -77,6 +77,19 @@ FLASH_BLOCKS = {128: 64, 256: 128, 100: 32, 64: 16, 1: 1, 65: 32, 127: 128,
                 512: 128}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for this file's tests and its module
+    fixtures alike (a fixture computed on more threads sums in another
+    order): the suite runs its files in several worker processes on the
+    same cores, and every worker's thread pool spinning for them slows the
+    port's small CPU ops a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs():
     return (j_get_config("internlm2-1.8b").reduced(**REDUCED),
             get_config("internlm2-1.8b").reduced(**REDUCED))
@@ -235,6 +248,118 @@ def test_mlp_apply_matches(dtype):
     jx, tx = _pair(_rand(rng, 2, 16, 32), dtype)
     _close(tl.mlp_apply(tw, tx, "swiglu"), jl.mlp_apply(jw, jx, "swiglu"),
            DTYPES[dtype][2])
+
+
+def _all_finite_bf16() -> np.ndarray:
+    """Every finite bf16 value, as f32 (each bit pattern but inf and NaN)."""
+    bits = np.arange(1 << 16, dtype=np.uint32) << 16
+    vals = bits.view(np.float32)
+    return vals[np.isfinite(vals)]
+
+
+@pytest.mark.parametrize("name", ["sigmoid", "silu", "gelu_tanh"])
+def test_activations_round_as_the_reference_on_every_bf16_value(name):
+    """`layers.sigmoid`, `silu` and `gelu_tanh` round each op to bf16, as
+    XLA computes ``jax.nn.sigmoid``, ``jax.nn.silu`` and
+    ``jax.nn.gelu(approximate=True)``: bitwise on every finite bf16 input
+    from -87 up but the 766 of magnitude below 2^-124 (0 kept).  Below
+    -87 the logistic, and below 2^-124 the product, is subnormal, which
+    XLA's CPU code flushes to zero and torch's keeps.  In f32 within 1e-6
+    on |x| <= 30."""
+    j_fn = {"sigmoid": jax.nn.sigmoid, "silu": jax.nn.silu,
+            "gelu_tanh": functools.partial(jax.nn.gelu, approximate=True)}[name]
+    t_fn = getattr(tl, name)
+    x = _all_finite_bf16()
+    x = x[(x >= -87) & ((np.abs(x) >= 2.0 ** -124) | (x == 0))]
+    got = t_fn(torch.from_numpy(x).to(torch.bfloat16))
+    want = j_fn(jnp.asarray(x, jnp.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(got), _np(want))
+    x = x[np.abs(x) <= 30]
+    _close(t_fn(torch.from_numpy(x)), j_fn(jnp.asarray(x)), 1e-6)
+
+
+def test_fan_out_sums_the_uses_gradients_in_f32():
+    """`layers.fan_out`: n views of x (no copy); under autograd x's
+    gradient is its uses' gradients summed in f32 in their order and
+    rounded once to bf16, without autograd x itself n times."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_rand(rng, 8, 16)).to(torch.bfloat16).requires_grad_(True)
+    ws = [torch.from_numpy(_rand(rng, 16, 4)).to(torch.bfloat16) for _ in range(4)]
+    uses = tl.fan_out(x, 4)
+    assert all(u.data_ptr() == x.data_ptr() and u.dtype == x.dtype for u in uses)
+    outs = [u @ w for u, w in zip(uses, ws)]
+    cts = [torch.from_numpy(_rand(rng, 8, 4)).to(torch.bfloat16) for _ in ws]
+    (g,) = torch.autograd.grad(outs, [x], cts)
+    parts = [ct @ w.t() for ct, w in zip(cts, ws)]
+    want = (((parts[0].float() + parts[1].float()) + parts[2].float())
+            + parts[3].float()).to(torch.bfloat16)
+    assert g.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(g), _np(want))
+    with torch.no_grad():
+        assert all(u is x for u in tl.fan_out(x, 3))
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "gelu", "relu_sq"])
+def test_mlp_apply_in_bf16_is_bitwise_the_references(kind):
+    """The same weights carried across (`params_from_jax`) and rounded to
+    bf16 in both packages: the FFN's output is the JAX package's bit for
+    bit (the activations round op by op, and these products sum alike);
+    in f32 within 1e-5."""
+    rng = np.random.default_rng(5)
+    w = {"w_gate": _rand(rng, 32, 64, scale=0.18), "w_up": _rand(rng, 32, 64, scale=0.18),
+         "w_down": _rand(rng, 64, 32, scale=0.125)}
+    if kind != "swiglu":
+        del w["w_gate"]
+    x = _rand(rng, 2, 16, 32, scale=2.0)
+    tp = params_from_jax(w, "cpu")
+    for dtype in ("bf16", "f32"):
+        jd, td, _ = DTYPES[dtype]
+        got = tl.mlp_apply({k: tp[k].to(td) for k in w}, torch.from_numpy(x).to(td), kind)
+        want = jl.mlp_apply({k: jnp.asarray(v, jd) for k, v in w.items()},
+                            jnp.asarray(x, jd), kind)
+        assert got.dtype == td
+        if dtype == "bf16":
+            np.testing.assert_array_equal(_np(got), _np(want))
+        else:
+            _close(got, want, 1e-5)
+
+
+def test_block_gradient_in_bf16_follows_the_references_cotangent_sums():
+    """One dense block (InternLM2's reduced widths) in bf16, the same
+    weights and input: its forward is the jitted reference's bit for bit,
+    and its backward sums the cotangents where XLA's fused backward sums
+    them (the norms read the unrounded residual sum; a norm's output
+    reaches its matmuls one cast at a time, their input gradients summed
+    in f32; the norm's own input gradient rounded before it joins the
+    residual's).  Every gradient within 1e-4 relative of the reference's
+    (the matmuls' sums differ in order only); autograd's default sums
+    leave the input's and the norms' gradients ~5e-3 apart."""
+    from repro.models import transformer as jt
+    from repro_torch.models import transformer as tt
+    from repro_torch.utils.tree import flatten_nested, nested
+
+    jc, tc = _cfgs()
+    jp = j_build(jc).init(0)
+    tp = nested(params_from_jax(jax.device_get(jp), "cpu"))
+    jb = jax.tree.map(lambda a: a[0].astype(jnp.bfloat16), jp["u0"])
+    tb = {k: v.to(torch.bfloat16)
+          for k, v in flatten_nested(tt._slice(tp["u0"], 0)).items()}
+    rng = np.random.default_rng(7)
+    x, ct = (_rand(rng, 4, 16, jc.d_model) for _ in range(2))
+    j_out, vjp = jax.vjp(jax.jit(lambda p, y: jt._block_apply("attn", p, y, jc)[0]),
+                         jb, jnp.asarray(x, jnp.bfloat16))
+    j_gp, j_gx = vjp(jnp.asarray(ct, jnp.bfloat16))
+    leaves = {k: v.clone().requires_grad_(True) for k, v in tb.items()}
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    t_out = tt._block_apply("attn", nested(leaves), tx, tc, False)[0]
+    grads = torch.autograd.grad(t_out, [tx] + list(leaves.values()),
+                                torch.from_numpy(ct).to(torch.bfloat16))
+    np.testing.assert_array_equal(_np(t_out.detach()), _np(j_out))
+    assert _rel(grads[0], j_gx) < 1e-4
+    j_flat = flatten_nested(j_gp)
+    for (name, _), g in zip(leaves.items(), grads[1:]):
+        assert g.dtype == torch.bfloat16 and _rel(g, j_flat[name]) < 1e-4, name
 
 
 # -- the flash kernel's plain version --------------------------------------------

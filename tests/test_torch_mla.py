@@ -91,6 +91,19 @@ DG = dict(period=2, burn_in=4, history_size=2, guard=True, curvature_eps=1e-8)
 B, S, D, H = 2, 12, 64, 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for this file's tests and its module
+    fixtures alike (a fixture computed on more threads sums in another
+    order): the suite runs its files in several worker processes on the
+    same cores, and every worker's thread pool spinning for them slows the
+    port's small CPU ops a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(x.detach().float() if isinstance(x, torch.Tensor) else
                       jnp.asarray(x, jnp.float32))

@@ -94,6 +94,19 @@ GROUP = (4, 16)
 DROPS = {2.0: "none", 1.25: "some", 0.5: "many"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for this file's tests and its module
+    fixtures alike (a fixture computed on more threads sums in another
+    order): the suite runs its files in several worker processes on the
+    same cores, and every worker's thread pool spinning for them slows the
+    port's small CPU ops a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(x.detach().float() if isinstance(x, torch.Tensor) else
                       jnp.asarray(x, jnp.float32))
@@ -277,6 +290,39 @@ def test_moe_apply_matches_in_bf16(capacity_factor):
     j_flat = flatten_nested(j_grads[0])
     for (name, _), g in zip(leaves.items(), grads[1:]):
         assert g.dtype == torch.bfloat16 and _rel(g, j_flat[name]) < 5e-2, name
+
+
+@pytest.mark.parametrize("path", ["moe_apply", "moe_ref"])
+@pytest.mark.parametrize("capacity_factor", [2.0, 0.5])
+def test_expert_ffn_in_bf16_is_bitwise_the_references(capacity_factor, path):
+    """The routed experts' FFN on both of its paths (the capacity buffer of
+    `moe_apply`, the dense oracle `moe_ref`), weights and input rounded to
+    bf16 in both packages: the output is the JAX package's bit for bit
+    (SiLU rounds op by op, as ``jax.nn.silu`` under XLA); in f32 within
+    1e-5.  The shared experts are `mlp_apply` and their gate
+    `layers.sigmoid`, each held bitwise in tests/test_torch_lm.py; here
+    they are off, since their (T, d) x (d, d) down-projection sums in
+    another order under torch's bf16 GEMM than under XLA's in 0.07 % of
+    the outputs (one bf16 ulp)."""
+    jcfg, tcfg, jp, tp, x = _moe_case(capacity_factor, "onehot")
+    jcfg = dataclasses.replace(jcfg, num_shared=0)
+    tcfg = dataclasses.replace(tcfg, num_shared=0)
+    for dtype in ("bf16", "f32"):
+        jd, td = DTYPES[dtype]
+        jw = jax.tree.map(lambda a: a.astype(jd), jp)
+        tw = nested({k: v.to(td) for k, v in flatten_nested(tp).items()})
+        if path == "moe_apply":
+            got = tmoe.moe_apply(tw, torch.from_numpy(x).to(td).reshape(1, -1, 64),
+                                 tcfg)[0].reshape(x.shape)
+            want = jmoe.moe_apply(jw, jnp.asarray(x, jd), jcfg)[0]
+        else:
+            got = tmoe.moe_ref(tw, torch.from_numpy(x).to(td), tcfg)
+            want = jmoe.moe_ref(jw, jnp.asarray(x, jd), jcfg)
+        assert got.dtype == td
+        if dtype == "bf16":
+            np.testing.assert_array_equal(_np(got), _np(want))
+        else:
+            _close(got, want, 1e-5)
 
 
 def test_moe_apply_matches_the_dense_oracle_below_capacity():

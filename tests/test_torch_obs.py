@@ -444,6 +444,8 @@ def test_spans_and_counters_equal_the_reference(case):
             a = e["args"]
             assert a["pred_s"] > 0 and a["roofline_ratio"] == pytest.approx(
                 a["measured_s"] / a["pred_s"])
+            # device times come from CUDA events: on the CPU, host time only
+            assert "device_s" not in a and "device_roofline_ratio" not in a
     # the counters: the engine's exactly, the store's fetches and hits
     cj = {(s["name"]): s for s in rj.snapshot()}
     ct = {(s["name"]): s for s in rt.snapshot()}

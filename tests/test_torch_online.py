@@ -52,6 +52,19 @@ COUNTERS = ("explicit_steps", "approx_steps", "guard_fallbacks",
             "skipped_steps", "grad_examples", "grad_examples_baseline")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for this file's tests and its module
+    fixtures alike (a fixture computed on more threads sums in another
+    order): the suite runs its files in several worker processes on the
+    same cores, and every worker's thread pool spinning for them slows the
+    port's small CPU ops a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flat(params):
     return np.concatenate([np.asarray(params[k], np.float32).reshape(-1)
                            for k in sorted(params)])
