@@ -99,40 +99,42 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
      expanded form, no flash launch under flash) against the stepped
      absorbed decode, the card against the port's CPU run (full width at 2
      layers in bf16, the reduced model in f32), train -> BaseL -> replay on
-     phase 9's recipe and main path at 2 of 62 layers (p = 501,406,208),
-     the replay under the profiler, its d_ui/d_us against 1 (recorded in
-     bf16, where both packages' replays fall either side of 1 by the draw),
-     with the replay kernels' launches and those kernels against their
-     plain versions at that p, and the train CLI at that cut resumed from
-     step 4, held bitwise;
- 17. the Mamba2 hybrid, zamba2-7b at its published widths: `decode_main`
-     at 7 of 13 units (42 layers; tokens/s, ms per step against the step's byte
-     bound, launches and busy share, memory, the SSM, conv and KV states'
-     bytes), `prefill_fn` (chunked SSD and the shared block's windowed
-     blockwise attention, no flash launch) against the stepped decode in
-     bf16 and, on 32 tokens, in f32, `torch.cumsum` on the card bitwise
-     the SSD's sequential f32 sum, the card against the port's CPU run
-     (full width at 6 layers in bf16, the reduced hybrid in f32), train
-     -> BaseL -> replay on phase 9's recipe and main path at 1 of 13 units
-     (p = 824,797,968) cut by host memory to T 10 and j0 4 and by the
-     card's to windows of one step with per-block remat, the replay under
-     the profiler, its d_ui/d_us recorded in bf16 (both packages' replays
+     phase 9's recipe and main path at 2 of 62 layers (p = 501,406,208) and
+     T 8, j0 4 (`LM_TIME_CUT`), the replay under the profiler, its
+     d_ui/d_us against 1 (recorded in bf16, where both packages' replays
      fall either side of 1 by the draw), with the replay kernels' launches
      and those kernels against their plain versions at that p, and the
      train CLI at that cut resumed from step 4, held bitwise;
+ 17. the Mamba2 hybrid, zamba2-7b at its published widths: `decode_main` at
+     7 of 13 units (42 layers; tokens/s, ms per step against the step's
+     byte bound, launches and busy share, memory, the SSM, conv and KV
+     states' bytes), `prefill_fn` (chunked SSD and the shared block's
+     windowed blockwise attention, no flash launch) against the stepped
+     decode in bf16 and, on 32 tokens, in f32, `torch.cumsum` on the card
+     bitwise the SSD's sequential f32 sum, the card against the port's CPU
+     run (full width at 6 layers in bf16, the reduced hybrid in f32), train
+     -> BaseL -> replay on phase 9's recipe and main path at 1 of 13 units
+     (p = 824,797,968) cut to T 8 and j0 4 (`LM_TIME_CUT`; host memory
+     alone would allow T 10) and by the card's to windows of one step with
+     per-block remat, the replay under the profiler, its d_ui/d_us recorded
+     in bf16 (both packages' replays fall either side of 1 by the draw),
+     with the replay kernels' launches and those kernels against their
+     plain versions at that p, and the train CLI at that cut resumed from
+     step 4, held bitwise;
  18. xLSTM, xlstm-350m at its published widths: `decode_main` at all 24
      layers (tokens/s, ms per step against the step's byte bound, launches
      and busy share, memory, the mLSTM's and sLSTM's state bytes),
-     `prefill_fn` (the chunked mLSTM and the sLSTM's loop, no flash
-     launch) against the stepped decode in bf16 and f32, the card against
-     the port's CPU run (full width at 2 layers in bf16, and the reduced
-     model in f32), train -> BaseL -> replay on phase 9's recipe and main
-     path at 2 of 24 layers (cut by the script's time: the sLSTM's loop is
-     host-bound), its d_ui/d_us recorded (both packages' replays miss on
-     the CPU), with the replay kernels' launches and those kernels against
-     their plain versions at that p, the reduced model's f32 replay on the
-     card against the port's CPU run (counters, parameters and d_ui/d_us),
-     and the train CLI at that cut resumed from step 2, held bitwise;
+     `prefill_fn` (the chunked mLSTM and the sLSTM's loop, no flash launch)
+     against the stepped decode in bf16 and f32, the card against the
+     port's CPU run (full width at 2 layers in bf16, and the reduced model
+     in f32), train -> BaseL -> replay on phase 9's recipe and main path at
+     2 of 24 layers and T 8, j0 4 (cut by the script's time: the sLSTM's
+     loop is host-bound), its d_ui/d_us recorded (both packages' replays
+     miss on the CPU), with the replay kernels' launches and those kernels
+     against their plain versions at that p, the reduced model's f32 replay
+     on the card against the port's CPU run (counters, parameters and
+     d_ui/d_us), and the train CLI at that cut resumed from step 2, held
+     bitwise;
  19. the encoder-decoder family, whisper-large-v3 at its published widths:
      32 encoder and 16 of the 32 decoder layers (cut by the script's time)
      encode 1500 frames once, fill the cross caches and decode 128 + 64
@@ -152,7 +154,18 @@ nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
  20. the port's five examples (``examples/torch/{quickstart,
      online_deletion,jackknife,unlearn_lm,serve_decode}.py``) through their
      ``main()`` on the card at their own sizes: finite numbers, every
-     tensor on the card, each one's wall time against the phase's 20 s.
+     tensor on the card, each one's wall time against the phase's 20 s;
+ 21. the mesh-sharded replay on torch.distributed (ROADMAP 9g), each rank
+     a spawned process on the card that loads the kernels built above and
+     runs (a) and (b) in one process group, then (c) in another: (a)
+     two ranks on cuda:0 over gloo, the paper MLP at phase 4's size on a
+     2-rank data mesh (resident, add mode, the host f32 tier streamed,
+     delta_int8 in kernel and fetch mode) against the same replays on one
+     rank, with each rank's history bytes against its packed shard's, the
+     per-tile update's tiles and every rank's launches; (b) the two
+     ranks' online stream (delete, add, delete, delete) at phase 11's
+     scale against one rank's; (c) one rank a card over NCCL, (a)'s
+     resident replay.  Parameters bitwise equal across ranks.
 
 Phase 1 also prints `roofline.analytic_cost` of every registered LM arch
 under the four shape cells against the H100's peaks (arithmetic).  Each
@@ -207,6 +220,10 @@ runs phase 19 alone.
     python3 chip_smoke.py --examples
 
 runs phase 20 alone.
+
+    python3 chip_smoke.py --shard
+
+runs phase 21 alone.
 
     python3 chip_smoke.py --lm-blockwise
 
@@ -285,10 +302,12 @@ ONLINE = dict(n=8000, d=4000, batch=4096, steps=60, lr=0.3, l2=5e-3,
 ONLINE_TOL = 1e-5  # card against the port's CPU run, max |gap| of w
 # phase 12: the session surface.  At the rcv1.binary width (LOGREG, on
 # paper_logreg's recipe): a coalesced burst of r rows, then a serial stream
-# of 8 deletes and 2 adds; at quickstart's size (examples/quickstart.py),
-# snapshots and the host tier; the tests' privacy constants
-# (tests/test_algorithms.py:25)
-SESSION = dict(stream_deletes=8, stream_adds=2)
+# of 4 deletes and 1 add (cut from 8 and 2 by the script's time when phase
+# 21 came in: each request also runs on the CPU, ~3.5 s there; the rows are
+# drawn as for 8 and 2, `draws`, so the burst's rows are those of earlier
+# runs); at quickstart's size (examples/quickstart.py), snapshots and the
+# host tier; the tests' privacy constants (tests/test_algorithms.py:25)
+SESSION = dict(stream_deletes=4, stream_adds=1, draws=(8, 2))
 QUICK = dict(n=5000, d=200, steps=100, batch=1024, lr=0.3, period=5,
              burn_in=10, m=2, deleted=50, seed=0, window=12)
 PRIVACY = dict(eps=1.0, delta=1e-5, mu=0.5, L=1.0, c0=0.1, c2=0.1)
@@ -301,10 +320,12 @@ SESSION_LM = dict(reduced=dict(n_layers=2, d_model=512, n_heads=8,
                   rows=[3, 17, 40, 61])
 # phase 13: the serving tier.  (a) the entry point at the rcv1.binary shape
 # on phase 10's recipe: 12 Poisson requests of mixed SLA classes, a burst of
-# 8; (b) a fixed trace of 10 requests, 2 tenants, add_frac 0.25, inline under
-# a virtual clock, and an open-loop threaded run at quickstart's size; (c) the
-# fixed trace's deletes on a host delta_int8 history
-SERVE = dict(requests=12, burst=8, fixed_events=10, interval_s=0.02,
+# 8; (b) a fixed trace of 6 requests (cut from 10 by the script's time when
+# phase 21 came in: the trace also runs on the CPU, ~2.7 s a request there),
+# 2 tenants, add_frac 0.25, inline under a virtual clock, and an open-loop
+# threaded run at quickstart's size; (c) the fixed trace's deletes on a host
+# delta_int8 history
+SERVE = dict(requests=12, burst=8, fixed_events=6, interval_s=0.02,
              threaded_events=16, quick_rate=100.0,
              classes={"interactive": 0.5, "batch": 0.3, "bulk_gdpr": 0.2})
 # the sections the reference CLI writes (src/repro/launch/serve.py:252-383)
@@ -356,6 +377,12 @@ MOE_TRAIN = dict(batch=8, seq=512, steps=4)
 # 2 of 62 layers (the one cut; p = 501,406,208); (e) the train CLI at (d)'s cut
 MLA_DECODE = dict(layers=8, batch=16, prompt=128, gen=64, n_params=877_455_872)
 MLA_LM = dict(n_params=501_406_208)
+# phases 16-18 (d) in the default run: T 8 and j0 4 (approx steps at 5, 6
+# and 7 with T0 4), cut by the script's 1,200 s when phase 21 came in (the
+# whole script took 1,035-1,098 s at phase 9's T 12 and j0 6, and the
+# hybrid's T 10); their bf16 d_ui/d_us is recorded, not held.  The opt-in
+# `--mla-dg`, `--hybrid-dg` and `--xlstm-dg` runs keep their recipes
+LM_TIME_CUT = dict(steps=8, burn_in=4)
 # in bf16 compute the replay's d_ui/d_us on this recipe falls either side of
 # 1 by the draw, in both packages: the bf16 gradient's rounding enters the
 # L-BFGS pairs (PERF.md section 7; `python tests/test_torch_mla.py
@@ -528,10 +555,37 @@ WHISPER_DG_BAR = {"bf16": True, "f32": "both packages miss alike in 1 of 8 f32 "
 EXAMPLES = ("quickstart", "online_deletion", "jackknife", "unlearn_lm",
             "serve_decode")
 EXAMPLES_BUDGET_S = 20.0
+# phase 21: the mesh-sharded replay (ROADMAP 9g) on torch.distributed, every
+# rank on the card.  (a) two ranks on cuda:0 over gloo (NCCL refuses two
+# ranks on one device; gloo's all_reduce, all_gather and broadcast take CUDA
+# tensors) at phase 4's MAIN: the resident replay, `SHARD["add"]` rows in add
+# mode, the host f32 tier streamed in windows of STREAM_WINDOW, and
+# delta_int8 in kernel and fetch mode, each on a 1-D data mesh of the two
+# ranks, against the same replay on one rank on the card; (b) the two ranks'
+# online stream (delete, add, delete, delete) at phase 11's scale; (c) one
+# rank per card over NCCL: (a)'s resident replay.  The ranks start by spawn
+# after the parent has built the kernels and drawn the datasets (saved for
+# them), load the built libraries, and run (a), (b) and then (c) in one spawn
+# (a process takes seconds to reach the card)
+SHARD = dict(world=2, add=3, timeout_s=120, budget_s=45.0)
+SHARD_STREAM = ("delete", "add", "delete", "delete")
+# max |gap| of w, a mesh's replay (or stream) against one rank's on the card:
+# ten times the largest of phase 21's first chip run on the H100 (2.980e-08
+# resident, online and NCCL, 1.490e-08 add; PERF.md section 6): the mesh sums
+# each gradient per rank, then across, in another order than one rank
+SHARD_TOL = 3e-7
 # the reduced LM of tests/test_lm.py, for the card-vs-CPU parity (f32)
 LM_REDUCED = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
                   vocab=64, d_head=8)
 FAILURES: list = []
+START = time.perf_counter()  # the script's start, for `mark`
+
+
+def mark(what: str) -> None:
+    """Say on stderr that `what` starts, with the seconds since the script
+    started: a run stopped at its time limit shows where it was."""
+    print(f"chip_smoke: {time.perf_counter() - START:.1f} s: {what}",
+          file=sys.stderr, flush=True)
 
 
 def fail(msg: str) -> None:
@@ -770,14 +824,14 @@ def main() -> int:
     from repro_torch.kernels.lbfgs.ops import multidot, rank_update
     from repro_torch.kernels.lbfgs.ref import multidot_ref, rank_update_ref
     from repro_torch.models.registry import build
-    from repro_torch.models.simple import (mlp_accuracy, mlp_init,
-                                           mlp_objective, params_from_jax)
+    from repro_torch.models.simple import mlp_accuracy, params_from_jax
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
 
     # -- 1. environment and build ---------------------------------------------
+    mark("phase 1. environment and build")
     print(f"device: {kind} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
@@ -826,6 +880,7 @@ def main() -> int:
                            seed=LOGREG["seed"])
 
     # -- 2. each kernel against its plain version ------------------------------
+    mark("phase 2. each kernel against its plain version")
     gen = torch.Generator(device=dev).manual_seed(1234)
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         dname = "f32" if dtype == torch.float32 else "bf16"
@@ -1020,6 +1075,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # -- 3. time each kernel at the main path's shape (m = 2, f32) ----------------
+    mark("phase 3. time each kernel at the main path's shape (m = 2, f32)")
     def replay_cases(p, bounds):
         """The five p-length kernels' calls at m = 2, f32 (the dequant pair
         on int8 codes with a scale per leaf over `bounds` and an f32
@@ -1171,21 +1227,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. the main path at full width ---------------------------------------
-    obj = mlp_objective(l2=CONFIG.l2)
-    ds = multiclass_classification(MAIN["n"], CONFIG.d_in, CONFIG.vocab,
-                                   seed=MAIN["seed"])
-    params0 = mlp_init(CONFIG.d_in, CONFIG.d_model, CONFIG.vocab,
-                       generator=torch.Generator().manual_seed(MAIN["seed"]),
-                       device=dev)
+    mark("phase 4. the main path at full width")
+    obj, ds, params0, meta, cfg, removed = main_problem(torch, np, dev)
     T = MAIN["steps"]
-    meta = HistoryMeta(n=ds.n, batch_size=ds.n, seed=MAIN["seed"], steps=T,
-                       lr_schedule=CONFIG.lr_schedule)
-    cfg = dg.DeltaGradConfig(period=CONFIG.period, burn_in=CONFIG.burn_in(T),
-                             history_size=CONFIG.history_size,
-                             guard=CONFIG.guard,
-                             curvature_eps=CONFIG.curvature_eps)
-    removed = np.random.default_rng(MAIN["seed"] + 1).choice(
-        ds.n, size=MAIN["r"], replace=False)
     # warm-up, counted as set-up: cuBLAS and the solver's first calls, the
     # dataset's upload, every kernel's first launch
     warm_meta = HistoryMeta(n=ds.n, batch_size=ds.n, seed=0, steps=6,
@@ -1243,6 +1287,7 @@ def main() -> int:
         fail(f"add: d_ui {d_ui_a:.3e} not below half of d_us {d_us_a:.3e}")
 
     # -- 5. the streamed path: host and disk tiers under every codec ---------
+    mark("phase 5. the streamed path: host and disk tiers under every codec")
     dg.deltagrad_retrain(  # warm-up of the streamer (threads, pinned memory)
         obj, dg.sgd_train_with_cache(obj, params0, ds, warm_meta, tier="host",
                                      codec="delta_int8")[1],
@@ -1351,6 +1396,7 @@ def main() -> int:
     stream_hist = streamed["host/delta_int8"][0]
 
     # -- 6. determinism, and the spread of the end-to-end times ----------------
+    mark("phase 6. determinism, and the spread of the end-to-end times")
     base_s, replay_s = [st_u.wall_time_s], [st.wall_time_s]
     worst = 0.0
     for _ in range(REPEATS - 1):  # BaseL and replay in turns
@@ -1371,6 +1417,7 @@ def main() -> int:
               f"all={[round(x, 4) for x in xs]}")
 
     # -- 7. parity: card against the port's CPU run --------------------------
+    mark("phase 7. parity: card against the port's CPU run")
     rng = np.random.default_rng(6)
     P = PARITY
     p0 = {"w1": (rng.normal(size=(P["d"], P["hidden"])) / np.sqrt(P["d"])).astype(np.float32),
@@ -1424,12 +1471,14 @@ def main() -> int:
         np.array([3, 11, 25, 40]))
 
     # -- 8. profile of the resident and of a streamed replay -----------------
+    mark("phase 8. profile of the resident and of a streamed replay")
     profile_replay(torch, "replay", lambda: dg.deltagrad_retrain(
         obj, hist, ds, removed, cfg))
     profile_replay(torch, "streamed host/delta_int8 kernel-mode replay",
                    lambda: dg.deltagrad_retrain(obj, stream_hist, ds, removed, cfg))
 
     # -- 9. the LM path at full width --------------------------------------------
+    mark("phase 9. the LM path at full width")
     del hist, stream_hist, streamed
     torch.cuda.empty_cache()
     lm_launches = lm_phase(torch, np, dev, kernels)
@@ -1446,48 +1495,64 @@ def main() -> int:
         dict(name=n, **lm_p[n]) for n in rank]}), flush=True)
 
     # -- 10. logistic regression at the RCV1 shape; 11. Algorithm 3 ---------------
+    mark("phase 10. logistic regression at the RCV1 shape; 11. Algorithm 3")
     gc_collect()
     rcv1 = logreg_phase(torch, np, dev, kernels, rcv1_data)
     gc_collect()
     online_phase(torch, np, dev, kernels)
 
     # -- 12. the session surface ------------------------------------------------------
+    mark("phase 12. the session surface")
     gc_collect()
     serial_ms = session_phase(torch, np, dev, kernels, rcv1)
 
     # -- 13. the serving tier ----------------------------------------------------------
+    mark("phase 13. the serving tier")
     gc_collect()
     serve_phase(torch, np, dev, kernels, rcv1, serial_ms)
 
     # -- 14. the LM's decode path and the train CLI ------------------------------------
+    mark("phase 14. the LM's decode path and the train CLI")
     gc_collect()
     decode_train_phase(torch, np, dev, kernels)
 
     # -- 15. the MoE family -------------------------------------------------------------
+    mark("phase 15. the MoE family")
     gc_collect()
     moe_phase(torch, np, dev, kernels)
 
     # -- 16. multi-head latent attention -------------------------------------------------
+    mark("phase 16. multi-head latent attention")
     gc_collect()
     mla_phase(torch, np, dev, kernels)
 
     # -- 17. the Mamba2 hybrid ---------------------------------------------------------------
+    mark("phase 17. the Mamba2 hybrid")
     gc_collect()
     hybrid_phase(torch, np, dev, kernels)
 
     # -- 18. xLSTM ------------------------------------------------------------------------------
+    mark("phase 18. xLSTM")
     gc_collect()
     xlstm_phase(torch, np, dev, kernels)
 
     # -- 19. the encoder-decoder family ---------------------------------------------------------
+    mark("phase 19. the encoder-decoder family")
     gc_collect()
     whisper_phase(torch, np, dev, kernels)
 
     # -- 20. the port's examples ------------------------------------------------------------
+    mark("phase 20. the port's examples")
     gc_collect()
     examples_phase(torch, np, dev, kernels)
 
+    # -- 21. the mesh-sharded replay on torch.distributed ------------------------------------
+    mark("phase 21. the mesh-sharded replay on torch.distributed")
+    gc_collect()
+    shard_phase(torch, np, dev, kernels)
+
     # -- results ---------------------------------------------------------------------
+    mark("results")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failure(s)", file=sys.stderr)
         for f in FAILURES:
@@ -2255,8 +2320,9 @@ def mla_phase(torch, np, dev, kernels) -> None:
 def mla_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
     """16 (d): DeltaGrad on minicpm3-4b at full width, 2 of its 62 layers,
     on phase 9's recipe and main path (``attn_impl="flash"``, which MLA
-    never reaches; a host f32 history streamed in windows of 2 steps) in
-    the compute `dtype` (None: the model's bf16).  On the main path the
+    never reaches; a host f32 history streamed in windows of 2 steps), on
+    the main path at T 8 and j0 4 (`LM_TIME_CUT`), in the compute `dtype`
+    (None: the model's bf16).  On the main path the
     replay runs once, under the profiler (its busy share; replay_s is read
     there), with the launch counts zeroed just before and read after.
     Held: no flash or dequant launch, each replay kernel launched once per
@@ -2274,8 +2340,8 @@ def mla_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
     what = "bf16" if dtype is None else str(dtype).split(".")[-1]
     print(f"mla lm: MemAvailable {mem_available_gb():.1f} GiB at the start",
           flush=True)
-    cfg, model, p0, docs, meta, dgc, removed, obj = lm_setup(torch, np, dev,
-                                                             "minicpm3-4b", dtype)
+    cfg, model, p0, docs, meta, dgc, removed, obj = lm_setup(
+        torch, np, dev, "minicpm3-4b", dtype, **(LM_TIME_CUT if main_path else {}))
     lcfg = register(dc.replace(cfg, name=f"{cfg.name}-{cfg.n_layers}l"))
     if p0.numel != MLA_LM["n_params"]:
         fail(f"mla lm: p = {p0.numel}, want {MLA_LM['n_params']}")
@@ -2629,30 +2695,36 @@ def xlstm_step_bound(smi, label, cfg, res) -> None:
 
 def xlstm_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
     """18 (d): DeltaGrad on xlstm-350m at full width and 2 of its 24 layers
-    (cut by time), on phase 9's recipe and main path, with per-block remat
+    (cut by time; on the main path also T 8 and j0 4, `LM_TIME_CUT`), on
+    phase 9's recipe and main path, with per-block remat
     (`XLSTM_LM`), in the compute `dtype` (None: the model's bf16), through
     `stack_deltagrad`.  The replay is not profiled: its sLSTM steps launch
     ~27 kernels each, 512 a block a forward pass, ~1 M a replay.
     ``--xlstm-dg f32`` runs this alone in f32 compute (`main_path`
     False).  Returns the config, registered for the train CLI."""
+    cut, note = XLSTM_LM, "1 of 12 units, cut by time"
+    if main_path:
+        cut, note = dict(XLSTM_LM, **LM_TIME_CUT), note + "; T and j0 cut by time"
     return stack_deltagrad(torch, np, dev, kernels, smi, "xlstm-350m", "xlstm lm",
-                           XLSTM_LM, XLSTM_DG_BAR, "1 of 12 units, cut by time",
-                           dtype=dtype, main_path=main_path)
+                           cut, XLSTM_DG_BAR, note, dtype=dtype, main_path=main_path)
 
 
 def hybrid_deltagrad(torch, np, dev, kernels, smi, dtype=None, main_path=True):
     """17 (d): DeltaGrad on zamba2-7b at full width, 1 of its 13 units (6
     blocks), on phase 9's recipe and main path (``attn_impl="flash"``,
     which the windowed shared block never reaches; a host f32 history)
-    cut to T 10 and j0 4 by host memory and to windows of one step and
+    cut to T 10 and j0 4 by host memory (on the main path to T 8 by time,
+    `LM_TIME_CUT`) and to windows of one step and
     per-block remat by the card's (`HYBRID_LM`), in the compute `dtype`
     (None: the model's bf16), through `stack_deltagrad`; on the main path
     the replay runs under the profiler.  ``--hybrid-dg f32`` runs this
     alone in f32 compute (`main_path` False).  Returns the 6-layer config,
     registered for the train CLI."""
-    cut = f"1 of 13 units; cut from T {LM['steps']}, j0 {LM_DG['burn_in']}"
+    cut = dict(HYBRID_LM, **LM_TIME_CUT) if main_path else HYBRID_LM
+    note = (f"1 of 13 units; cut from T {LM['steps']}, j0 {LM_DG['burn_in']}"
+            + (" by host memory and time" if main_path else " by host memory"))
     return stack_deltagrad(torch, np, dev, kernels, smi, "zamba2-7b", "hybrid lm",
-                           HYBRID_LM, HYBRID_DG_BAR, cut, dtype=dtype,
+                           cut, HYBRID_DG_BAR, note, dtype=dtype,
                            main_path=main_path, profile=main_path)
 
 
@@ -3184,8 +3256,6 @@ def profile_replay(torch, label: str, run):
     """One replay (`run()` -> (params, stats)) under the profiler: prints
     its device busy share, launches, host waits and top device ops, and
     returns `run()`'s result."""
-    from torch.autograd import DeviceType
-
     out, prof = profile_run(torch, run)
     st_p = out[1]
     wall_ms, busy_us, rows = prof["wall_ms"], prof["busy_us"], prof["rows"]
@@ -3202,18 +3272,19 @@ def profile_replay(torch, label: str, run):
           f"busy_share={busy_us / 1e3 / wall_ms:.3f} "
           f"device_ops={prof['device_ops']} "
           f"cudaLaunchKernel={prof['launches_host']}{waits}")
-    dev_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
-    for e in sorted(dev_rows, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:12]:
-        print(f"profile {label}: device {e.self_device_time_total / 1e3:9.3f} "
-              f"ms x{e.count:<5d} {e.key[:70]}")
+    for name, us, count in rows[:12]:
+        print(f"profile {label}: device {us / 1e3:9.3f} ms x{count:<5d} {name[:70]}")
     return out
 
 
 def profile_run(torch, fn):
     """fn() under torch.profiler (CPU and CUDA activity): (fn's result,
     {wall_ms, busy_us (the union of the device's busy spans), device_ops,
-    launches_host (cudaLaunchKernel calls), rows (key_averages)})."""
+    launches_host (cudaLaunchKernel calls), rows ((name, device us, count)
+    of each device op, the most device time first)}).  It reads the
+    profiler's raw events: building its event tree (`events()`,
+    `key_averages()`) took 10-40 s after an LM replay's ~10^5 device ops,
+    and the raw events give the same spans, names and counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3224,18 +3295,26 @@ def profile_run(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans, ops, launches = [], {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            start, us = e.start_ns() / 1e3, e.duration_ns() / 1e3
+            spans.append((start, start + us))
+            total, count = ops.get(e.name(), (0.0, 0))
+            ops[e.name()] = (total + us, count + 1)
+        elif e.name() == "cudaLaunchKernel":
+            launches += 1
+    spans.sort()
     busy_us, end_us = 0.0, float("-inf")
     for a, b in spans:
         if b > end_us:
             busy_us += b - max(a, end_us)
             end_us = b
-    rows = prof.key_averages()
+    rows = sorted(((name, us, count) for name, (us, count) in ops.items()),
+                  key=lambda r: -r[1])
     return out, {"wall_ms": wall_ms, "busy_us": busy_us,
                  "device_ops": len(spans), "rows": rows,
-                 "launches_host": sum(e.count for e in rows
-                                      if e.key == "cudaLaunchKernel")}
+                 "launches_host": launches}
 
 
 def gc_collect() -> None:
@@ -3449,6 +3528,7 @@ def online_phase(torch, np, dev, kernels) -> None:
     from repro_torch.core import deltagrad as dg
     from repro_torch.core.history import HistoryMeta
     from repro_torch.core.online import online_deltagrad
+    from repro_torch.data.dataset import Dataset
     from repro_torch.data.synthetic import binary_classification
     from repro_torch.models.simple import logreg_init, logreg_objective
 
@@ -3457,8 +3537,12 @@ def online_phase(torch, np, dev, kernels) -> None:
     cfg = dg.DeltaGradConfig(period=O["period"], burn_in=O["burn_in"],
                              history_size=O["m"])
 
+    # every stream starts from the same draw (append builds new arrays, so
+    # no stream sees another's rows); drawn once, not for each stream
+    base = binary_classification(O["n"], O["d"], seed=O["seed"]).columns
+
     def stream(where, mode, momentum, tier=None, decode="auto"):
-        ds = binary_classification(O["n"], O["d"], seed=O["seed"])
+        ds = Dataset(dict(base))
         lr = O["momentum_lr"] if momentum else O["lr"]
         meta = HistoryMeta(n=O["n"], batch_size=O["batch"], seed=7,
                            steps=O["steps"], lr_schedule=((0, lr),),
@@ -3821,7 +3905,7 @@ def session_phase(torch, np, dev, kernels, rcv1: dict) -> float:
 
     At the rcv1.binary width (phase 10's data and recipe, stacked tier):
     fit, BaseL on the burst's rows, one coalesced delete burst of r rows,
-    a serial stream of 8 deletes and 2 adds through `serve_stream`, each
+    a serial stream of 4 deletes and 1 add through `serve_stream`, each
     held against the port's CPU run of the same session; the certificate
     under the default constants (must refuse) and the tests' constants,
     and two publishes from one generator state; `retrain_oracle` against
@@ -3866,9 +3950,11 @@ def session_phase(torch, np, dev, kernels, rcv1: dict) -> float:
         return [x.counters() for x in stats]
 
     rng = np.random.default_rng(L["seed"] + 2)
-    rows = rng.choice(L["n"], L["r"] + SESSION["stream_deletes"], replace=False)
-    burst, dels = rows[:L["r"]].tolist(), rows[L["r"]:].tolist()
-    add_src = rng.choice(L["n"], SESSION["stream_adds"], replace=False)
+    drawn_dels, drawn_adds = SESSION["draws"]
+    rows = rng.choice(L["n"], L["r"] + drawn_dels, replace=False)
+    burst = rows[:L["r"]].tolist()
+    dels = rows[L["r"]:L["r"] + SESSION["stream_deletes"]].tolist()
+    add_src = rng.choice(L["n"], drawn_adds, replace=False)[:SESSION["stream_adds"]]
 
     # -- at the rcv1.binary width: burst, stream, certificate, publish --------
     card, fit_s = session(dev)
@@ -4199,6 +4285,7 @@ def serve_phase(torch, np, dev, kernels, rcv1: dict, serial_ms: float) -> None:
     from repro_torch.configs.paper_logreg import RECIPE
     from repro_torch.core.deltagrad import DeltaGradConfig
     from repro_torch.core.session import UnlearnerConfig, UnlearnerSession
+    from repro_torch.data import synthetic
     from repro_torch.data.dataset import Dataset
     from repro_torch.data.synthetic import binary_classification
     from repro_torch.launch.serve import unlearn_main
@@ -4229,8 +4316,17 @@ def serve_phase(torch, np, dev, kernels, rcv1: dict, serial_ms: float) -> None:
                 "--trace", "poisson", "--sla-class", "mixed",
                 "--rate", repr(rate), "--bench-out", bench,
                 "--trace-out", trace]
+        # the CLI draws phase 10's data set again (n, d and seed are phase
+        # 10's): it gets the columns drawn then, not ~30 s of numpy's RNG
+        drawn = synthetic.binary_classification
+        synthetic.binary_classification = lambda n, d, seed=0: (
+            Dataset(dict(rcv1)) if (n, d, seed) == (L["n"], L["d"], L["seed"])
+            else drawn(n, d, seed=seed))
         t0 = time.perf_counter()
-        res, n = counted_run(kernels, lambda: unlearn_main(argv))
+        try:
+            res, n = counted_run(kernels, lambda: unlearn_main(argv))
+        finally:
+            synthetic.binary_classification = drawn
         cli_s = time.perf_counter() - t0
         with open(bench) as f:
             written = json.load(f)
@@ -4453,6 +4549,402 @@ def serve_phase(torch, np, dev, kernels, rcv1: dict, serial_ms: float) -> None:
           flush=True)
 
 
+def main_problem(torch, np, dev, columns=None):
+    """Phase 4's main path on the paper MLP at full width: (objective,
+    dataset, w_0, HistoryMeta, DeltaGradConfig, the removed rows); the
+    dataset from `columns` (its columns as drawn) when given."""
+    from repro_torch.configs.paper_mlp import CONFIG
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core.history import HistoryMeta
+    from repro_torch.data.dataset import Dataset
+    from repro_torch.data.synthetic import multiclass_classification
+    from repro_torch.models.simple import mlp_init, mlp_objective
+
+    obj = mlp_objective(l2=CONFIG.l2)
+    ds = (Dataset(dict(columns)) if columns is not None else
+          multiclass_classification(MAIN["n"], CONFIG.d_in, CONFIG.vocab,
+                                    seed=MAIN["seed"]))
+    params0 = mlp_init(CONFIG.d_in, CONFIG.d_model, CONFIG.vocab,
+                       generator=torch.Generator().manual_seed(MAIN["seed"]),
+                       device=dev)
+    T = MAIN["steps"]
+    meta = HistoryMeta(n=ds.n, batch_size=ds.n, seed=MAIN["seed"], steps=T,
+                       lr_schedule=CONFIG.lr_schedule)
+    cfg = dg.DeltaGradConfig(period=CONFIG.period, burn_in=CONFIG.burn_in(T),
+                             history_size=CONFIG.history_size,
+                             guard=CONFIG.guard,
+                             curvature_eps=CONFIG.curvature_eps)
+    removed = np.random.default_rng(MAIN["seed"] + 1).choice(
+        ds.n, size=MAIN["r"], replace=False)
+    return obj, ds, params0, meta, cfg, removed
+
+
+def shard_added(ds, removed):
+    """`ds` with copies of the first SHARD["add"] removed rows appended:
+    the rows the add-mode replay adds."""
+    return ds.append({k: c[removed[:SHARD["add"]]] for k, c in ds.columns.items()})
+
+
+def shard_online_problem(torch, np, dev, columns=None):
+    """Phase 11's delete recipe and scale (logreg, n 8000, d 4000) with one
+    appended row: (objective, dataset, w_0, meta, config, requests); the
+    dataset from `columns` (its columns as drawn) when given."""
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core.history import HistoryMeta
+    from repro_torch.data.dataset import Dataset
+    from repro_torch.data.synthetic import binary_classification
+    from repro_torch.models.simple import logreg_init, logreg_objective
+
+    O = ONLINE
+    ds = (Dataset(dict(columns)) if columns is not None else
+          binary_classification(O["n"], O["d"], seed=O["seed"]))
+    meta = HistoryMeta(n=O["n"], batch_size=O["batch"], seed=7, steps=O["steps"],
+                       lr_schedule=((0, O["lr"]),))
+    p0 = logreg_init(O["d"], generator=torch.Generator().manual_seed(1), device=dev)
+    rows = np.random.default_rng(11).choice(O["n"], len(SHARD_STREAM),
+                                            replace=False).tolist()
+    added = ds.append({k: v[rows[1:2]] for k, v in ds.columns.items()}).tolist()
+    reqs = [(op, added[0] if op == "add" else row)
+            for op, row in zip(SHARD_STREAM, rows)]
+    cfg = dg.DeltaGradConfig(period=O["period"], burn_in=O["burn_in"],
+                             history_size=O["m"])
+    return logreg_objective(l2=O["l2"]), ds, p0, meta, cfg, reqs
+
+
+def shard_rank(rank: int, out_dir: str, ports: dict) -> None:
+    """One process of phase 21 (started by spawn), on the datasets the
+    parent drew and saved in `out_dir`, with the libraries the parent
+    built.  Ranks 0 and 1 run (a) and (b) on cuda:0 in a gloo group of
+    SHARD["world"]; then ranks below the card count run (c), rank r on
+    cuda:r in an NCCL group of one rank a card.  Each group meets at
+    ``tcp://localhost:<ports[its tag]>``.  Its results and its stages'
+    seconds are pickled to ``<out_dir>/rank<rank>.pkl``."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+
+    torch.cuda.set_device(0)
+    _build.build_all()  # nothing to compile: the parent's libraries load
+    out = {"seconds": {"ready": time.perf_counter() - t0}}
+
+    def columns(name):
+        with np.load(Path(out_dir, f"{name}.npz")) as f:
+            return {k: f[k] for k in f.files}
+
+    def group(backend, world, tag, dev, body):
+        t = time.perf_counter()
+        torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=f"tcp://localhost:{ports[tag]}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=SHARD["timeout_s"]))
+        try:
+            body()
+        finally:
+            dist.destroy_process_group()
+        out["seconds"][tag] = time.perf_counter() - t
+
+    mlp = columns("mlp")
+    if rank < SHARD["world"]:
+        def ab():
+            out["mlp"] = shard_mlp_runs(torch, np, torch.device("cuda", 0), True, mlp)
+            out["online"] = shard_online_run(torch, np, torch.device("cuda", 0),
+                                             columns("logreg"))
+
+        group("gloo", SHARD["world"], "ab", torch.device("cuda", 0), ab)
+    n_cards = torch.cuda.device_count()
+    if rank < n_cards:
+        dev = torch.device("cuda", rank)
+
+        def c():
+            out["mlp_c"] = shard_mlp_runs(torch, np, dev, False, mlp)
+
+        group("nccl", n_cards, "c", dev, c)
+    with open(Path(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _shard_result(w, st, n, tiles):
+    return dict(w=w.flat.cpu().numpy(), counters=st.counters(),
+                replay_s=st.wall_time_s, launches=n, tiles=sorted(set(tiles)),
+                extra={k: v for k, v in st.extra.items()
+                       if isinstance(v, (int, float, str, dict))})
+
+
+def shard_mlp_runs(torch, np, dev, full: bool, columns: dict) -> dict:
+    """A rank's MLP replays on a 1-D data mesh over every rank: resident,
+    and with `full` the add mode, the host f32 tier streamed and
+    delta_int8 in kernel and fetch mode.  Each with its kernels' launches and the lengths of the vectors
+    the per-tile update ran on."""
+    import torch.distributed as dist
+
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core import store as store_mod
+    from repro_torch.core.store import PlacementPolicy
+
+    kernels = kernel_table()
+    obj, ds, params0, meta, cfg, removed = main_problem(torch, np, dev, columns)
+    pol = PlacementPolicy.local()
+    tiles = []
+    real_update = store_mod.fused_update
+
+    def recorded(w, *args, **kw):
+        tiles.append(w.numel())
+        return real_update(w, *args, **kw)
+
+    store_mod.fused_update = recorded
+    # set-up: the pair solve's cuSOLVER handle and the group's first
+    # collective, so the first replay's time is its own
+    torch.linalg.solve_ex(torch.eye(2, device=dev), torch.ones(2, 1, device=dev))
+    dist.all_reduce(torch.zeros(1, device=dev))
+    _, hist = dg.sgd_train_with_cache(obj, params0, ds, meta)
+    runs = {}
+
+    def run(label, fn):
+        tiles.clear()
+        (w, st), n = counted_run(kernels, fn)
+        runs[label] = _shard_result(w, st, n, tiles)
+
+    run("resident", lambda: dg.deltagrad_retrain(obj, hist, ds, removed, cfg,
+                                                 placement=pol))
+    if full:
+        ds_add = main_problem(torch, np, dev, columns)[1]
+        new = shard_added(ds_add, removed)
+        run("add", lambda: dg.deltagrad_retrain(obj, hist, ds_add, new, cfg,
+                                                mode="add", placement=pol))
+        for label, codec, decode in (("host/f32", "f32", "fetch"),
+                                     ("host/delta_int8 kernel", "delta_int8", "kernel"),
+                                     ("host/delta_int8 fetch", "delta_int8", "fetch")):
+            if not label.endswith("fetch") or codec == "f32":
+                _, h_c = dg.sgd_train_with_cache(obj, params0, ds, meta,
+                                                 tier="host", codec=codec)
+            c = dataclasses.replace(cfg, stream_window=STREAM_WINDOW,
+                                    stream_decode=decode)
+            run(label, lambda: dg.deltagrad_retrain(obj, h_c, ds, removed, c,
+                                                    placement=pol))
+    store_mod.fused_update = real_update
+    return runs
+
+
+def shard_online_run(torch, np, dev, columns: dict) -> dict:
+    """A rank's online stream on a 1-D data mesh over every rank."""
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core.online import online_deltagrad
+    from repro_torch.core.store import PlacementPolicy
+
+    obj, ds, p0, meta, cfg, reqs = shard_online_problem(torch, np, dev, columns)
+    _, hist = dg.sgd_train_with_cache(obj, p0, ds, meta)
+    (w, st), n = counted_run(kernel_table(), lambda: online_deltagrad(
+        obj, hist, ds, reqs, cfg, placement=PlacementPolicy.local()))
+    return dict(w=w.flat.cpu().numpy(), n=n,
+                counters=[s.counters() for s in st.per_request],
+                ms=[s.wall_time_s * 1e3 for s in st.per_request],
+                stream_s=st.wall_time_s, mesh=st.per_request[0].extra.get("mesh"),
+                hbm=st.per_request[0].extra["hbm_high_water"])
+
+
+def spawn_ranks(n: int, data: dict) -> list:
+    """`n` processes of `shard_rank` (spawn) over the datasets `data`
+    ({name: columns}, saved for them), joined within SHARD["timeout_s"] (a
+    rank's exception fails the script); their results in rank order."""
+    import os
+    import pickle
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    ports = {"ab": free_port(), "c": free_port()}
+    # the gloo group's sockets on the loopback device: every rank is on
+    # this host, and gloo would otherwise take the address the host name
+    # resolves to, which a machine without a network may not serve
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as d:
+        for name, columns in data.items():
+            np.savez(Path(d, f"{name}.npz"), **columns)
+        ctx = mp.start_processes(shard_rank, args=(d, ports), nprocs=n, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + SHARD["timeout_s"]
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"phase 21: {n} ranks ran past "
+                                   f"{SHARD['timeout_s']} s")
+        out = []
+        for r in range(n):
+            with open(Path(d, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def shard_phase(torch, np, dev, kernels) -> None:
+    """Phase 21: the mesh-sharded replay on torch.distributed (SHARD's
+    note): each sub-phase's backend, world size, per-rank history bytes,
+    replay_s and launches; the mesh's counters equal one rank's, its
+    parameters within SHARD_TOL of one rank's and bitwise equal across
+    ranks; the per-rank W and G bytes the packed shard's; the per-tile
+    fused update's tiles; streamed bitwise resident and kernel decode
+    bitwise fetch decode on the mesh."""
+    from repro_torch.core import deltagrad as dg
+    from repro_torch.core.online import online_deltagrad
+    from repro_torch.dist.sharding import Mesh, make_plan, shard_index
+
+    from repro_torch.data.dataset import Dataset
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    # one rank on the card: the replays and the stream the mesh is held to;
+    # the datasets are drawn once, and the ranks read them from files
+    obj, ds, params0, meta, cfg, removed = main_problem(torch, np, dev)
+    data = {"mlp": dict(ds.columns)}
+    _, hist = dg.sgd_train_with_cache(obj, params0, ds, meta)
+    single = {"resident": dg.deltagrad_retrain(obj, hist, ds, removed, cfg)}
+    ds_add = Dataset(data["mlp"])
+    new = shard_added(ds_add, removed)
+    single["add"] = dg.deltagrad_retrain(obj, hist, ds_add, new, cfg, mode="add")
+    whole_bytes = hist.nbytes()  # W and G, (T, p) f32 each
+    shapes, p, T = dict(hist.shapes), hist.final_params.numel, meta.steps
+    del hist, ds_add
+    o_obj, o_ds, o_p0, o_meta, o_cfg, reqs = shard_online_problem(torch, np, dev)
+    data["logreg"] = {k: v[:ONLINE["n"]] for k, v in o_ds.columns.items()}
+    _, o_hist = dg.sgd_train_with_cache(o_obj, o_p0, o_ds, o_meta)
+    o_w, o_st = online_deltagrad(o_obj, o_hist, o_ds, reqs, o_cfg)
+    del o_hist, o_ds
+    print(f"shard: one rank on {dev}: resident replay_s="
+          f"{single['resident'][1].wall_time_s:.4f} add replay_s="
+          f"{single['add'][1].wall_time_s:.4f} online stream_s="
+          f"{o_st.wall_time_s:.4f} per-request ms "
+          + ", ".join(f"{s.wall_time_s * 1e3:.3f}" for s in o_st.per_request)
+          + f"; history W+G {whole_bytes} B | {smi}", flush=True)
+
+    def held(tag, ranks, label, ref, key="mlp"):
+        """One mesh run of every rank (under `key`) against one rank's run
+        `ref`."""
+        r0 = ranks[0][key][label]
+        w1, s1 = ref
+        gap = float(np.abs(r0["w"] - w1.flat.cpu().numpy()).max())
+        same = r0["counters"] == s1.counters()
+        across = all(np.array_equal(r[key][label]["w"], r0["w"]) for r in ranks)
+        x = r0["extra"]
+        print(f"shard {tag} {label}: replay_s={r0['replay_s']:.4f} (one rank "
+              f"{s1.wall_time_s:.4f}) store={x['store']} per-rank history "
+              f"{x['hbm_high_water']} B mesh={x['mesh']['mesh_shape']} "
+              f"fused_update tiles {r0['tiles']} counters "
+              + " ".join(f"{k}={v}" for k, v in r0["counters"].items())
+              + f"; vs one rank: max |gap| {gap:.3e} (bar {SHARD_TOL}), counters "
+              f"equal: {same}; ranks bitwise equal: {across}; launches rank 0 "
+              f"{json.dumps(r0['launches'])}", flush=True)
+        if not (same and gap <= SHARD_TOL and across):
+            fail(f"shard {tag} {label}: gap {gap:.3e}, counters equal {same}, "
+                 f"ranks bitwise equal {across}")
+        return r0
+
+    def launches_ok(tag, label, ranks, world, key="mlp"):
+        """Every rank launched fused_update once per approx step on a tile
+        of ceil(p / world), the L-BFGS pair once per approx step, and no
+        dequant kernel (a packed row is decoded before its gather)."""
+        for r, res in enumerate(ranks):
+            x = res[key][label]
+            approx = x["counters"]["approx_steps"]
+            if x["tiles"] != [-(-p // world)]:
+                fail(f"shard {tag} {label} rank {r}: update tiles {x['tiles']}")
+            for k, n in x["launches"].items():
+                want = approx if k in RESIDENT else 0
+                if (k in RESIDENT and n <= 0) or (
+                        x["counters"]["guard_fallbacks"] == 0 and n != want):
+                    fail(f"shard {tag} {label} rank {r}: {k} launched {n} "
+                         f"times, want {want}")
+
+    # one spawn: (a) and (b), two ranks on cuda:0 over gloo, then (c), one
+    # rank a card over NCCL
+    world, world_c = SHARD["world"], torch.cuda.device_count()
+    t0 = time.perf_counter()
+    procs = spawn_ranks(max(world, world_c), data)
+    print(f"shard: {len(procs)} spawned ranks, spawn_to_join_s="
+          f"{time.perf_counter() - t0:.2f}; seconds a stage (ready: start, "
+          f"imports, card, libraries; ab: gloo group of {world} on cuda:0; c: "
+          f"nccl group of {world_c}, one rank a card): "
+          + "; ".join(f"rank {r} " + " ".join(f"{k}={v:.2f}" for k, v in
+                                              x["seconds"].items())
+                      for r, x in enumerate(procs)), flush=True)
+    ranks, ranks_c = procs[:world], procs[:world_c]
+    tag = f"(a) gloo world={world}"
+    res = held(tag, ranks, "resident", single["resident"])
+    held(tag, ranks, "add", single["add"])
+    mesh = Mesh((world,), ("data",))
+    packed = [shard_index(make_plan(mesh), shapes, (r,)).index.size
+              for r in range(world)]
+    for r, rk in enumerate(ranks):
+        got = rk["mlp"]["resident"]["extra"]["hbm_high_water"]
+        want = 2 * T * packed[r] * 4
+        print(f"shard {tag} rank {r}: history W+G {got} B, packed shard "
+              f"{packed[r]} of p={p} per step ({want} B), share of one "
+              f"rank's {whole_bytes} B = {got / whole_bytes:.5f}", flush=True)
+        if got != want:
+            fail(f"shard {tag} rank {r}: history bytes {got} != packed {want}")
+    for label in ("resident", "add", "host/f32", "host/delta_int8 kernel"):
+        launches_ok(tag, label, ranks, world)
+    for label in ("host/f32", "host/delta_int8 kernel", "host/delta_int8 fetch"):
+        x = ranks[0]["mlp"][label]
+        across = all(np.array_equal(r["mlp"][label]["w"], x["w"]) for r in ranks)
+        print(f"shard {tag} {label}: replay_s={x['replay_s']:.4f} store="
+              f"{x['extra']['store']} decode={x['extra']['stream_decode']} "
+              f"windows={x['extra']['windows']} per-rank hbm_high_water="
+              f"{x['extra']['hbm_high_water']} B compression_ratio="
+              f"{x['extra']['compression_ratio']:.4f} ranks bitwise equal: "
+              f"{across} launches rank 0 {json.dumps(x['launches'])}", flush=True)
+        if not across or x["extra"]["store"] != "sharded_streamed":
+            fail(f"shard {tag} {label}: store {x['extra']['store']}, ranks "
+                 f"bitwise equal {across}")
+    f32 = ranks[0]["mlp"]["host/f32"]
+    if not np.array_equal(f32["w"], res["w"]):
+        fail(f"shard {tag} host/f32: not bitwise the mesh-resident replay "
+             f"({np.abs(f32['w'] - res['w']).max():.3e})")
+    kern = ranks[0]["mlp"]["host/delta_int8 kernel"]
+    fetch = ranks[0]["mlp"]["host/delta_int8 fetch"]
+    print(f"shard {tag}: host/f32 bitwise the mesh-resident replay: "
+          f"{np.array_equal(f32['w'], res['w'])}; delta_int8 kernel decode "
+          f"bitwise fetch decode: {np.array_equal(kern['w'], fetch['w'])}",
+          flush=True)
+    if not (np.array_equal(kern["w"], fetch["w"])
+            and kern["counters"] == fetch["counters"]):
+        fail(f"shard {tag}: delta_int8 kernel decode is not bitwise fetch decode")
+    on = ranks[0]["online"]
+    gap = float(np.abs(on["w"] - o_w.flat.cpu().numpy()).max())
+    same = on["counters"] == [s.counters() for s in o_st.per_request]
+    across = all(np.array_equal(r["online"]["w"], on["w"]) for r in ranks)
+    print(f"shard (b) gloo world={world} online {'/'.join(SHARD_STREAM)}: "
+          f"stream_s={on['stream_s']:.4f} (one rank {o_st.wall_time_s:.4f}) "
+          f"per-request ms " + ", ".join(f"{x:.3f}" for x in on["ms"])
+          + f" per-rank history {on['hbm']} B mesh={on['mesh']['mesh_shape']}; "
+          f"vs one rank: max |gap| {gap:.3e} (bar {SHARD_TOL}), counters equal "
+          f"per request: {same}; ranks bitwise equal: {across}; launches rank 0 "
+          f"{json.dumps(on['n'])}", flush=True)
+    if not (same and gap <= SHARD_TOL and across):
+        fail(f"shard (b) online: gap {gap:.3e}, counters equal {same}, ranks "
+             f"bitwise equal {across}")
+
+    tag = f"(c) nccl world={world_c}"
+    held(tag, ranks_c, "resident", single["resident"], key="mlp_c")
+    launches_ok(tag, "resident", ranks_c, world_c, key="mlp_c")
+    took = time.perf_counter() - t_phase
+    print(f"shard: phase 21 took {took:.2f} s (budget {SHARD['budget_s']} s) "
+          f"| {smi}", flush=True)
+
+
 def opt_in_main(body) -> int:
     """`body(torch, np, dev)` alone on the card, for an opt-in flag: the
     kernels built first; exits 0 unless a check fails."""
@@ -4550,6 +5042,12 @@ def examples_main() -> int:
                                                              kernel_table()))
 
 
+def shard_main() -> int:
+    """``--shard``: phase 21 alone."""
+    return opt_in_main(lambda torch, np, dev: shard_phase(torch, np, dev,
+                                                          kernel_table()))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--hybrid"]:
         sys.exit(hybrid_main())
@@ -4561,6 +5059,8 @@ if __name__ == "__main__":
         sys.exit(whisper_main())
     if sys.argv[1:] == ["--examples"]:
         sys.exit(examples_main())
+    if sys.argv[1:] == ["--shard"]:
+        sys.exit(shard_main())
     if sys.argv[1:2] == ["--xlstm-dg"] and len(sys.argv) == 3:
         sys.exit(xlstm_dg_main(sys.argv[2]))
     if sys.argv[1:2] == ["--moe-dg"] and len(sys.argv) == 3:

@@ -254,10 +254,20 @@ class DeltaGradAlgorithm(UnlearningAlgorithm):
     def _engine_cfg(self):
         return self.config.deltagrad
 
-    def engine(self) -> OnlineEngine:
+    def engine(self, placement=None) -> OnlineEngine:
+        """The online engine, made at first call on `placement` (else
+        ``config.placement``); a placement given after that raises."""
         if self._engine is None:
-            self._engine = OnlineEngine(self.objective, self.history, self.ds,
-                                        self._engine_cfg(), device=self.device)
+            self._engine = OnlineEngine(
+                self.objective, self.history, self.ds, self._engine_cfg(),
+                device=self.device,
+                placement=placement if placement is not None
+                else self.config.placement)
+        elif placement is not None:
+            raise RuntimeError(
+                "the session's engine already exists; placement must be "
+                "chosen before the first request (pass it to the first "
+                "engine() call or set config.placement)")
         return self._engine
 
     def apply(self, op, rows, coalesce=True):

@@ -139,7 +139,14 @@ def deltagrad_retrain(objective: Objective, history: TrainingHistory,
                       ds: Dataset, changed_idx: np.ndarray,
                       cfg: DeltaGradConfig, mode: str = "delete",
                       params0: Optional[FlatParams] = None,
-                      device=None) -> Tuple[FlatParams, RetrainStats]:
-    """Algorithm 1 (GD + SGD unified; GD == SGD with batch_size >= n)."""
+                      device=None, placement=None,
+                      store=None) -> Tuple[FlatParams, RetrainStats]:
+    """Algorithm 1 (GD + SGD unified; GD == SGD with batch_size >= n).
+
+    `placement` (a `core.store.PlacementPolicy`) shards the replay across
+    the ranks of the default process group, each of which makes this
+    call; `store` reuses a prebuilt `core.store.HistoryStore` across
+    calls."""
     return run_replay(objective, history, ds, changed_idx, cfg, mode=mode,
-                      params0=params0, device=device)
+                      params0=params0, device=device, placement=placement,
+                      store=store)

@@ -50,6 +50,16 @@ Mapping to Wu et al., ICML 2020 (and to the JAX package's `core.engine`):
             writes both the rewritten g_t and the step taken with it.
             Rewrites are kept until the request ends and land in one
             `store.commit` (each step reads only its original row).
+  MESH      on a store placed on a mesh (`core.store.PlacementPolicy`:
+            every rank of the default process group runs the same call),
+            each rank takes the gradients of its part of every batch,
+            summed over the data axis (`core.store.make_psum_grad_fn`),
+            reads w_t and g_t through the per-step gather of the packed
+            shards (`core.store.ShardedReplay`), and runs the L-BFGS
+            kernels on the replicated pairs; the replay's SGD approx step
+            launches `kernels.fused_update` on the rank's tile of the data
+            axis and all-gathers the tiles, an online request's updates
+            the whole vector.  ``stats.extra["mesh"]`` describes the mesh.
 
 Parameters are one flat f32 buffer (`utils.tree.FlatParams`, the order of
 jax's ``ravel_pytree``), so each kernel runs once per step over all of p.
@@ -81,7 +91,8 @@ import torch
 from repro_torch.core.history import HistoryMeta, TrainingHistory
 from repro_torch.core.lbfgs import LbfgsBuffer, ring_valid_mask
 from repro_torch.core.store import (EncodedWindow, HistoryStore,
-                                   SegmentStreamer, auto_window, decode_row)
+                                   SegmentStreamer, _row, auto_window,
+                                   make_psum_grad_fn)
 from repro_torch.data.dataset import Dataset
 from repro_torch.data.sampler import (ReplaySchedule, batch_indices_all,
                                       build_schedule)
@@ -418,12 +429,18 @@ class _DeviceTimed:
 class _Steps:
     """What every step of one replay or online request reads: the gradient
     function, the history's store, the device columns and the schedule
-    (numpy for the host's scalars, `DeviceSchedule` for the rows)."""
+    (numpy for the host's scalars, `DeviceSchedule` for the rows).  On a
+    mesh-placed store (``runner``, a `core.store.ShardedReplay`) the rows
+    are this rank's part of each batch and the history's rows come
+    through the per-step gather."""
 
     def __init__(self, grad_fn, store: HistoryStore, cols, sched, dev,
                  momentum: float):
         self.grad_fn, self.store, self.cols = grad_fn, store, cols
+        self.runner = store.sharded_replay()
         self.sched, self.sd = sched, to_device(sched, dev)
+        if self.runner is not None:
+            self.sd = self.runner.local_schedule(self.sd)
         self.sign = 1 if sched.mode == "delete" else -1
         self.mom = float(momentum)
         self._zeros: Optional[torch.Tensor] = None
@@ -480,12 +497,18 @@ class _Steps:
                 sp.set(device_roofline_ratio=device_s / float(sp.args["pred_s"]))
         self.scan_events.clear()
 
-    @staticmethod
-    def rows(W, G, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Row i of a window as f32 (an encoded one decoded on its own)."""
-        if isinstance(W, EncodedWindow):
-            return decode_row(W, i), decode_row(G, i)
-        return W[i], G[i]
+    def rows(self, W, G, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Row i of a window as flat f32 rows (an encoded one decoded on its
+        own; a packed one gathered)."""
+        if self.runner is not None:
+            return self.runner.entry_at(W, G, i)
+        return _row(W, G, i)
+
+    def encoded_kernels(self, W) -> bool:
+        """True where the SGD approx step reads an encoded window through
+        `kernels.dequant_update` (off a mesh: on one, each row is decoded
+        before its gather)."""
+        return isinstance(W, EncodedWindow) and self.runner is None
 
 
 class _Replay(_Steps):
@@ -493,9 +516,15 @@ class _Replay(_Steps):
 
     def __init__(self, objective, store: HistoryStore, cols, sched, dev,
                  plan, cfg: DeltaGradConfig, B: int, stats: RetrainStats):
-        super().__init__(objective.make_grad_fn(), store, cols, sched, dev,
+        runner = store.sharded_replay()
+        grad_fn = (objective.make_grad_fn() if runner is None
+                   else make_psum_grad_fn(objective, runner.data_group))
+        super().__init__(grad_fn, store, cols, sched, dev,
                          store.history.meta.momentum)
         self.plan, self.cfg, self.B = plan, cfg, B
+        # the SGD approx update: per tile of the data axis on a mesh
+        self.update = fused_update if self.runner is None \
+            else self.runner.fused_update
         self.stats = stats
         self.buffer = LbfgsBuffer(cfg.history_size,
                                   curvature_eps=cfg.curvature_eps)
@@ -542,7 +571,7 @@ class _Replay(_Steps):
 
     def _segment(self, params: FlatParams, vel, a: int, b: int):
         W, G, off = self.store.window(a, b)
-        encoded = isinstance(W, EncodedWindow)
+        encoded = self.encoded_kernels(W)
         dW, dG = self.buffer.stacked()
         guard, clip = self.cfg.guard, float(self.cfg.guard_norm_clip)
         flags: List[torch.Tensor] = []
@@ -571,10 +600,11 @@ class _Replay(_Steps):
                                      base)
                 finite = tree_all_finite(new)
             else:
-                v = params.flat - W[i]
+                w_t, g_t = self.rows(W, G, i)
+                v = params.flat - w_t
                 bv = lbfgs_hvp_fused(dW, dG, v)
-                new = fused_update(params.flat, G[i], bv, g_changed,
-                                   lr, self.B, dB, self.sign)
+                new = self.update(params.flat, g_t, bv, g_changed,
+                                  lr, self.B, dB, self.sign)
                 finite = tree_all_finite(new)
             if guard:
                 flags.append(finite & (tree_norm(bv) <= clip * tree_norm(v)))
@@ -585,12 +615,18 @@ class _Replay(_Steps):
 def run_replay(objective, history: TrainingHistory, ds: Dataset,
                changed_idx: np.ndarray, cfg: DeltaGradConfig,
                mode: str = "delete", params0: Optional[FlatParams] = None,
-               device=None) -> Tuple[FlatParams, RetrainStats]:
+               device=None, placement=None,
+               store: Optional[HistoryStore] = None
+               ) -> Tuple[FlatParams, RetrainStats]:
     """Algorithm 1 (GD + SGD unified; GD == SGD with batch_size >= n) on
-    `device` (None: the card), reading the history through the store its
-    tier calls for (`HistoryStore.create`: resident, or streamed in
-    windows of ``cfg.stream_window`` steps, read as ``cfg.stream_decode``
-    says)."""
+    `device` (None: the card), reading the history through `store` or the
+    store its tier calls for (`HistoryStore.create`: resident, or streamed
+    in windows of ``cfg.stream_window`` steps, read as
+    ``cfg.stream_decode`` says).  With `placement` (a
+    `core.store.PlacementPolicy`) every rank of the default process group
+    runs this call: the store holds the rank's shard of the path, the
+    schedule's batches split over the data axis and the gradients are
+    summed over it (the module note of `core.store`)."""
     if mode not in ("delete", "add"):
         raise ValueError(f"mode must be 'delete' or 'add', got {mode!r}")
     dev = resolve_device(device)
@@ -598,7 +634,11 @@ def run_replay(objective, history: TrainingHistory, ds: Dataset,
         raise ValueError(f"history lives on {history.device}, replay asked "
                          f"for {dev}")
     changed_idx = np.asarray(changed_idx, dtype=np.int64)
-    store = HistoryStore.create(history, window=cfg.stream_window,
+    if store is not None:  # the caller's, which it closes
+        return _run_replay(objective, history, store, ds, changed_idx, cfg,
+                           mode, params0, dev)
+    store = HistoryStore.create(history, placement=placement,
+                                window=cfg.stream_window,
                                 decode=cfg.stream_decode)
     try:
         return _run_replay(objective, history, store, ds, changed_idx, cfg,
@@ -708,6 +748,8 @@ def _run_replay(objective, history: TrainingHistory, store: HistoryStore,
     if history.tier == "disk":
         stats.extra.update(spill_io_read_s=history.io_read_s,
                            spill_io_write_s=history.io_write_s)
+    if rp.runner is not None:
+        stats.extra["mesh"] = rp.runner.placement.describe()
     _publish_replay_metrics(stats, store)
     return params, stats
 
@@ -785,7 +827,7 @@ class _Online(_Steps):
 
     def _segment(self, params: FlatParams, vel, a: int, b: int):
         W, G, off = self.store.window(a, b)
-        encoded = isinstance(W, EncodedWindow)
+        encoded = self.encoded_kernels(W)
         valid = ring_valid_mask(self.dW)
         guard, clip = self.cfg.guard, float(self.cfg.guard_norm_clip)
         flags: List[torch.Tensor] = []
@@ -814,10 +856,11 @@ class _Online(_Steps):
                 new, g_new = dequant_update(params.flat, q, bv, g_one, lr,
                                             b_prev, dB, self.sign, scale,
                                             G.bounds, base, with_g=True)
-            else:
-                v = params.flat - W[i]
+            else:  # the whole vector on every rank of a mesh
+                w_t, g_t = self.rows(W, G, i)
+                v = params.flat - w_t
                 bv = lbfgs_hvp_fused(self.dW, self.dG, v, valid)
-                new, g_new = fused_update(params.flat, G[i], bv, g_one, lr,
+                new, g_new = fused_update(params.flat, g_t, bv, g_one, lr,
                                           b_prev, dB, self.sign, with_g=True)
             if guard:
                 flags.append(tree_all_finite(new)
@@ -948,6 +991,8 @@ def run_online_request(grad_fn, store: HistoryStore, cols,
     if isinstance(store, SegmentStreamer):
         stats.extra.update(windows=store.windows_fetched,
                            stream_decode=store.decode_mode)
+    if on.runner is not None:
+        stats.extra["mesh"] = on.runner.placement.describe()
     if ring_started:  # the end-of-request pair ring, for stream snapshots
         stats.extra["lbfgs_ring"] = (on.dW, on.dG)
     _publish_replay_metrics(stats, store)

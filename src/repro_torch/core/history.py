@@ -16,6 +16,16 @@ Storage tiers:
                steps under ``spill_dir`` (``"auto"``: a fresh tempdir,
                removed when the process exits).
 
+On a mesh (`core.store.PlacementPolicy`, every rank holding the whole
+history it recorded), the replay's store keeps per rank only its PACKED
+SHARD of each row, the positions of its slice of every leaf
+(`dist.sharding.shard_index`): ``stacked`` through a mesh-placed
+`core.store.ResidentStore`, 2 T p_rank f32 on the device (p_rank = p / the
+mesh factor on the sharded leaves; replicated leaves whole), and ``host``
+or ``disk`` through `core.store.ShardedStreamer`, which stages and uploads
+only the rank's slice of each window, about two windows of the shard on
+the device.
+
 Codecs (host and disk; ``stacked`` stores only f32), per param per step
 with both w_t and g_t counted:
 

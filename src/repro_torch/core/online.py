@@ -23,7 +23,10 @@ rows, the added rows' join masks) and serves every request, delete or add,
 a row or a group of rows, SGD or momentum, through
 `core.engine.run_online_request`, against the history served by a
 `core.store.HistoryStore`: resident, or streamed in windows from the host
-or disk tier, whose rewrites go back through the codec.
+or disk tier, whose rewrites go back through the codec; on a
+`core.store.PlacementPolicy`'s mesh, the rank's shard of either, each
+rank serving every request with its part of every batch (the gradients
+summed over the data axis) and the whole-vector update.
 
 Each request runs under an ``online.request`` span (op, k, and the
 whole replay's roofline ``pred_s``); `OnlineEngine.warmup` emits
@@ -45,7 +48,8 @@ from repro_torch.core.engine import (DeltaGradConfig, RetrainStats,
                                      _next_pow2, _scan_pred, resolve_device,
                                      run_online_request)
 from repro_torch.core.history import TrainingHistory
-from repro_torch.core.store import HistoryStore
+from repro_torch.core.store import (HistoryStore, PlacementPolicy,
+                                   make_psum_grad_fn)
 from repro_torch.data.dataset import Dataset
 from repro_torch.data.sampler import (ReplaySchedule, addition_mask_all,
                                       batch_indices_all, build_online_schedule)
@@ -87,11 +91,12 @@ class OnlineEngine:
     prefix-stably as adds arrive.  The added-column block of the schedule
     is padded to a power of two, as the reference pads it, so both
     packages replay identical schedules.  `close` stops the store's
-    threads (a streamed history)."""
+    threads (a streamed history).  With `placement`, every rank of the
+    default process group builds the engine and serves every request."""
 
     def __init__(self, objective: Objective, history: TrainingHistory,
                  ds: Dataset, cfg: DeltaGradConfig, add_capacity: int = 0,
-                 device=None):
+                 device=None, placement: Optional[PlacementPolicy] = None):
         dev = resolve_device(device)
         if history.device.type != dev.type:
             raise ValueError(f"history lives on {history.device}, requests "
@@ -102,7 +107,6 @@ class OnlineEngine:
         # a larger block up front keeps the schedule's width constant
         # across an addition stream
         self.add_capacity = int(add_capacity)
-        self.grad_fn = objective.make_grad_fn()
         meta = history.meta
         self.idx_all = batch_indices_all(meta.seed, meta.steps, meta.n,
                                          meta.batch_size)
@@ -121,8 +125,12 @@ class OnlineEngine:
         # the last request's pair ring: snapshot state only (every request
         # rebuilds its ring from the rewritten path)
         self.last_ring: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-        self.store = HistoryStore.create(history, window=cfg.stream_window,
+        self.store = HistoryStore.create(history, placement=placement,
+                                         window=cfg.stream_window,
                                          decode=cfg.stream_decode)
+        runner = self.store.sharded_replay()
+        self.grad_fn = (objective.make_grad_fn() if runner is None
+                        else make_psum_grad_fn(objective, runner.data_group))
 
     def close(self) -> None:
         self.store.close()
@@ -271,7 +279,8 @@ class OnlineEngine:
 def online_deltagrad(objective: Objective, history: TrainingHistory,
                      ds: Dataset, requests: Sequence[Request],
                      cfg: DeltaGradConfig, mode: str = "delete",
-                     device=None) -> Tuple[FlatParams, OnlineStats]:
+                     device=None, placement: Optional[PlacementPolicy] = None
+                     ) -> Tuple[FlatParams, OnlineStats]:
     """Serve requests one after the other, rewriting the history.
 
     `requests` is a sequence of row ids (all of `mode`) or of ``(op,
@@ -279,13 +288,15 @@ def online_deltagrad(objective: Objective, history: TrainingHistory,
     appended to `ds` (``ds.n > history.meta.n``); each joins the replayed
     batches through `data.sampler.addition_mask`, with the inclusion
     probability of an original row.  Each request's ``wall_time_s`` runs
-    to the end of its device work."""
+    to the end of its device work.  With `placement`, every rank of the
+    default process group makes this call (`OnlineEngine`)."""
     if mode not in ("delete", "add"):
         raise ValueError(f"mode must be 'delete' or 'add', got {mode!r}")
     requests = list(requests)
     ops = [r[0] if isinstance(r, (tuple, list)) else mode for r in requests]
     engine = OnlineEngine(objective, history, ds, cfg,
-                          add_capacity=ops.count("add"), device=device)
+                          add_capacity=ops.count("add"), device=device,
+                          placement=placement)
     stats = OnlineStats()
     t_start = time.perf_counter()
     try:

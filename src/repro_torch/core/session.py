@@ -45,9 +45,15 @@ The deprecated auto-flush timer (`AutoFlushTimer`,
 `start_autoflush_timer`) warns and delegates to the serving tier's
 `repro_torch.serve.SessionFlushClock`, as in the reference.
 
-Not ported: mesh placement (``UnlearnerConfig.placement`` must stay
-None).  A snapshot of the JAX package cannot be restored whole here (its
-extra payload pickles the reference's classes); its params shard can
+Mesh placement: ``UnlearnerConfig.placement`` (a
+`core.store.PlacementPolicy`) places the engine's store on a mesh over
+the ranks of the default process group; every rank then builds the same
+session and makes the same calls.  `save()` writes the snapshot from rank
+0 (the policy pickled without its live group) after every rank has
+served the pending requests, and every rank restores from it.
+
+A snapshot of the JAX package cannot be restored whole here (its extra
+payload pickles the reference's classes); its params shard can
 (`train.checkpoint`).
 
 `core.api.Unlearner` is a thin compatibility shim over this class.
@@ -55,6 +61,7 @@ extra payload pickles the reference's classes); its params shard can
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import warnings
@@ -63,6 +70,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.algorithms import (Certificate, DescentToDeleteConfig,
                                          UnlearningAlgorithm, get_algorithm)
@@ -73,6 +81,7 @@ from repro_torch.core.engine import _sync, resolve_device
 from repro_torch.core.history import HistoryMeta, TrainingHistory
 from repro_torch.core.online import OnlineEngine, OnlineStats
 from repro_torch.core.privacy import PrivacyConfig
+from repro_torch.core.store import PlacementPolicy
 from repro_torch.data.dataset import Dataset
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.utils.tree import FlatParams
@@ -92,8 +101,9 @@ class UnlearnerConfig:
     history_tier: Optional[str] = None
     history_codec: str = "f32"
     spill_dir: Optional[str] = None
-    # the reference's mesh placement; multi-GPU is not ported, so None only
-    placement: Optional[Any] = None
+    # mesh placement for the cached path and the replay
+    # (core.store.PlacementPolicy; None: one device)
+    placement: Optional[PlacementPolicy] = None
     # auto-flush policy: flush when max_pending requests are queued, or
     # when the OLDEST pending request has waited max_delay_s (checked at
     # submit and by poll()); None disables
@@ -105,12 +115,6 @@ class UnlearnerConfig:
     privacy: Optional[PrivacyConfig] = None
     # descent-to-delete knobs (finetune steps, lr, projection radius)
     descent: Optional[DescentToDeleteConfig] = None
-
-    def __post_init__(self):
-        if self.placement is not None:
-            raise NotImplementedError(
-                "UnlearnerConfig.placement: mesh placement (multi-GPU) is not "
-                "ported yet (ROADMAP.md, queue 1 item 8); leave it None")
 
 
 @dataclass
@@ -346,16 +350,21 @@ class UnlearnerSession:
             return None
         return getattr(self._algorithm, "_engine", None)
 
-    def engine(self) -> OnlineEngine:
+    def engine(self, placement: Optional[PlacementPolicy] = None
+               ) -> OnlineEngine:
         """The session's online engine (created lazily; it owns liveness,
         the added rows' join columns and the rewritten cached path).  Only
-        engine-backed algorithms (deltagrad, retrain_oracle) have one."""
+        engine-backed algorithms (deltagrad, retrain_oracle) have one.
+
+        `placement` overrides ``config.placement`` for the engine's store
+        on FIRST creation; after that the engine, and its placement, is
+        fixed for the session's life."""
         algo = self.algorithm
         if not hasattr(algo, "engine"):
             raise RuntimeError(
                 f"algorithm {algo.name!r} does not serve through an "
                 "OnlineEngine; use session.algorithm directly")
-        return algo.engine()
+        return algo.engine(placement=placement)
 
     def warmup(self, specs=("delete",)) -> float:
         """The reference pre-compiles its request programs here; eager
@@ -716,7 +725,17 @@ class UnlearnerSession:
                                 if self._generator is not None else None),
             "tickets": self._tickets,
         }
-        return ckpt.save(directory, step, params, extra=extra)
+        placement = self.config.placement
+        if placement is None:
+            return ckpt.save(directory, step, params, extra=extra)
+        # every rank holds the same replicated state: rank 0 writes it, and
+        # no rank returns (and may restore) before the write is whole
+        if dist.get_rank() == 0:
+            path = ckpt.save(directory, step, params, extra=extra)
+        else:
+            path = os.path.join(directory, f"step_{step:08d}")
+        placement.barrier(self.device)
+        return path
 
     @classmethod
     def restore(cls, directory: str, objective: Objective,

@@ -38,6 +38,7 @@ from repro_torch.core.deltagrad import DeltaGradConfig, Objective
 from repro_torch.core.history import HistoryMeta, TrainingHistory
 from repro_torch.core.session import (UnlearnerConfig, UnlearnerSession,
                                       UnlearnRequest, plan_requests)
+from repro_torch.core.store import PlacementPolicy
 from repro_torch.data.synthetic import binary_classification as t_binary
 from repro_torch.data.synthetic import multiclass_classification as t_multiclass
 from repro_torch.data.synthetic import token_stream
@@ -473,9 +474,21 @@ def test_session_needs_a_card_by_default(monkeypatch):
                          t_binary(n=50, d=4, seed=0), UnlearnerConfig())
 
 
-def test_placement_is_not_ported():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        UnlearnerConfig(placement=object())
+def test_config_takes_a_placement_policy():
+    pol = PlacementPolicy(mesh_shape=(2,), axis_names=("data",))
+    cfg = UnlearnerConfig(placement=pol)
+    assert cfg.placement is pol and cfg.placement.data_size == 2
+
+
+def test_engine_placement_after_the_engine_exists_raises():
+    """The reference's rule: a placement is chosen before the first
+    request; once the engine exists, engine(placement=) raises."""
+    sess, _ = make_session(steps=10)
+    engine = sess.engine()
+    assert sess.engine() is engine and engine.store.sharded_replay() is None
+    with pytest.raises(RuntimeError, match="engine already exists"):
+        sess.engine(placement=PlacementPolicy(mesh_shape=(2,),
+                                              axis_names=("data",)))
 
 
 def test_warmup_compiles_nothing():
