@@ -7,15 +7,21 @@ Run from a checkout of the repository on a machine with a CUDA card and
 nvcc.  The first run builds the kernels from ``src/repro_torch/csrc`` into
 ``src/repro_torch/_build``.  Phases:
 
-  1. environment: the card, its power limit, versions, the kernels' build,
-     and the tensor-core MMA instructions in the bf16 flash instances'
-     SASS (cuobjdump);
+  1. environment: the card, its power limit, versions, the kernels' build
+     (flash_attention.cu's own nvcc seconds), and the tensor-core MMA
+     instructions in the bf16 flash instances' SASS (cuobjdump): HGMMA in
+     each wgmma instance, which must spill nothing (ptxas), HMMA in each
+     of the mma.sync yardstick's;
   2. each CUDA kernel against its plain PyTorch version on the card, in f32
      and bf16, at the main path's shapes and a ragged one; the dequant
      kernels with q int8 and bf16, with and without a keyframe base; the
      update kernels also in the estimate form the online request calls;
+     the wgmma flash instance bitwise the mma.sync yardstick at every bf16
+     flash shape;
   3. each kernel's time on the card beside its bound, its plain version's
-     and the matching PyTorch library call's; the five p-length kernels
+     and the matching PyTorch library call's; flash also beside the
+     yardstick, in turns, at the LM's and Whisper's shapes (at most 0.65x
+     its time at the LM's, less at Whisper's); the five p-length kernels
      also at the LM's p, cold;
   4. the main path (train -> BaseL -> DeltaGrad replay) on the paper MLP
      at full width (p = 238,510), n = 60,000, T = 40, r = 60, with the
@@ -282,6 +288,13 @@ FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
                 (32, 512, 16, 8, 128, True)]
 WHISPER_FLASH = (32, 448, 20, 20, 64)  # phase 3's second flash reading
 FLASH_TOL = {"f32": 2e-5, "bf16": 3e-2}  # the outer, elementwise bar
+# phase 2 holds the wgmma instance (every bf16 call) bitwise equal to the
+# mma.sync instance kept as its yardstick: one wgmma gives bitwise the sums
+# of the matching mma.sync calls (PERF.md section 6, the probe), and
+# the two do the same arithmetic operation for operation.  Phase 3's bars
+# on the wgmma instance against the yardstick, in one run: at most this
+# share of its time at the LM's shape, and faster at Whisper's
+FLASH_LM_SHARE = 0.65
 # the LM phase: InternLM2-1.8B at its published widths, 2 of its 24 layers
 LM = dict(layers=2, docs=128, seq=512, batch=32, steps=12, lr=0.01, seed=5,
           window=2, loss_chunk=128, n_params=504_899_584)
@@ -707,8 +720,9 @@ def roofline_table(smi) -> None:
 
 
 def tensor_core_instructions(lib: Path) -> dict:
-    """{kernel symbol: its count of tensor-core MMA instructions (HMMA,
-    HGMMA)} in the SASS of a built library, by the toolkit's cuobjdump."""
+    """{kernel symbol: {"HMMA": n, "HGMMA": n}}, its tensor-core MMA
+    instructions (mma.sync's HMMA, wgmma's HGMMA) in the SASS of a built
+    library, by the toolkit's cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     out = subprocess.run(
@@ -718,10 +732,29 @@ def tensor_core_instructions(lib: Path) -> dict:
     for line in out.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[fn][op] += 1
     return counts
+
+
+def ptxas_report(log: str, instance) -> dict:
+    """{instance(symbol): {"registers", "spill_stores", "spill_loads"}} from
+    nvcc's -Xptxas -v log, for the entry functions `instance` names."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = instance(line)
+            if fn:
+                out[fn] = {}
+        elif fn and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[fn]["spill_stores"], out[fn]["spill_loads"] = nums[1], nums[2]
+        elif fn and "Used " in line and "registers" in line:
+            out[fn]["registers"] = int(line.split("Used ")[1].split()[0])
+    return out
 
 
 def lm_leaf_bounds() -> tuple:
@@ -817,6 +850,7 @@ def main() -> int:
                                                         dequant_update_ref)
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.fused_update.ops import update
@@ -840,34 +874,49 @@ def main() -> int:
           "(nvcc, sm_90a, one process per source)", flush=True)
     for name in _build.sources():
         log = _build.build_log(name).splitlines()
-        regs = [int(x.split("Used ")[1].split()[0]) for x in log if "registers" in x]
+        regs = [int(x.split("Used ")[1].split()[0]) for x in log
+                if "Used " in x and "registers" in x]
         spills = [x.strip() for x in log if "spill" in x and " 0 bytes spill stores" not in x]
+        notes = [x.strip() for x in log if "registers" in x and "Used " not in x]
         print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}..{max(regs)} "
-              f"registers, spills: {spills or 'none'}")
+              f"registers, spills: {spills or 'none'}"
+              + (f"; notes: {notes}" if notes else ""))
     # the analytic roofline of every LM arch under the four shape cells
     roofline_table(smi)
     # the bf16 flash instances must compute on the tensor cores: count the
-    # MMA instructions in their SASS (the f32 instances use FMAs)
+    # MMA instructions in their SASS (the f32 instances use FMAs); the
+    # wgmma instances (every bf16 call) must hold HGMMA and spill nothing,
+    # the mma.sync yardstick HMMA
     def instance(symbol):
-        hit = re.search(r"flash_fwd_(bf16_mma|f32_fma)ILi(\d+)E", symbol)
+        hit = re.search(r"flash_fwd_(bf16_wgmma|bf16_mma|f32_fma)ILi(\d+)E", symbol)
         return f"{hit[1]} D={hit[2]}" if hit else None
 
-    regs, fn = {}, None  # ptxas: "Compiling entry function '<symbol>'" ...
-    for line in _build.build_log("flash_attention").splitlines():
-        if "Compiling entry function" in line:
-            fn = instance(line)
-        elif fn and "registers" in line:
-            regs[fn] = int(line.split("Used ")[1].split()[0])
-    mma = {}
-    for symbol, n in tensor_core_instructions(_build.library_path("flash_attention")).items():
-        if instance(symbol):
-            mma[instance(symbol)] = n
-    print("sass flash_attention: HMMA/HGMMA instructions (ptxas registers) per "
-          "instance: " + ", ".join(f"{k}: {n} ({regs.get(k)})"
-                                   for k, n in sorted(mma.items())), flush=True)
-    bf16_mma = {k: n for k, n in mma.items() if k.startswith("bf16")}
-    if len(bf16_mma) != 4 or not all(bf16_mma.values()):
-        fail(f"flash_attention: bf16 instances without tensor-core MMA: {bf16_mma}")
+    print(f"nvcc flash_attention.cu: {_build.NVCC_SECONDS.get('flash_attention', 0.0):.2f} s "
+          "(its own process, beside the other sources')", flush=True)
+    log = _build.build_log("flash_attention")
+    ptxas = ptxas_report(log, instance)
+    serial = [x.strip() for x in log.splitlines() if "wgmma" in x and "serializ" in x]
+    sass = {instance(sym): n for sym, n in
+            tensor_core_instructions(_build.library_path("flash_attention")).items()
+            if instance(sym)}
+    for name in sorted(sass):
+        r = ptxas.get(name, {})
+        print(f"sass flash_attention {name}: HMMA {sass[name]['HMMA']} HGMMA "
+              f"{sass[name]['HGMMA']}; ptxas registers {r.get('registers')}, spill "
+              f"stores {r.get('spill_stores')} B, spill loads {r.get('spill_loads')} B",
+              flush=True)
+    print(f"ptxas flash_attention wgmma serialization warnings: {serial or 'none'}",
+          flush=True)
+    wgmma = {k: v for k, v in sass.items() if k.startswith("bf16_wgmma")}
+    yard = {k: v for k, v in sass.items() if k.startswith("bf16_mma")}
+    if len(wgmma) != 4 or not all(v["HGMMA"] for v in wgmma.values()):
+        fail(f"flash_attention: wgmma instances without HGMMA: {wgmma}")
+    if len(yard) != 4 or not all(v["HMMA"] for v in yard.values()):
+        fail(f"flash_attention: mma.sync instances without HMMA: {yard}")
+    spilled = {k: r for k, r in ptxas.items() if k.startswith("bf16_wgmma")
+               and (r.get("spill_stores") != 0 or r.get("spill_loads") != 0)}
+    if spilled or len([k for k in ptxas if k.startswith("bf16_wgmma")]) != 4:
+        fail(f"flash_attention: wgmma instances spill or lack a ptxas report: {spilled}")
 
     kernels = kernel_table()
     for k in kernels.values():
@@ -1040,6 +1089,19 @@ def main() -> int:
             k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
                     for _ in range(2))
             got = attention(q, k, v, causal=causal)
+            what = f"B={B} S={S} H={H} Hkv={Hkv} D={D} causal={causal} {dname}"
+            if dtype == torch.bfloat16:
+                yard = torch.empty_like(q)
+                flash_kernel.flash_attention_mma(q, k, v, yard, causal)
+                y_gap = (got.float() - yard.float()).abs()
+                y_same = torch.equal(got, yard)
+                print(f"check flash_attention wgmma against mma.sync {what}: "
+                      f"bitwise={y_same} gap max={y_gap.max().item():.3e} "
+                      f"mean={y_gap.mean().item():.3e}")
+                if not y_same:
+                    fail(f"flash_attention {what}: the wgmma instance is not bitwise "
+                         "the mma.sync yardstick")
+                del yard, y_gap
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             ref = attention_ref(qt, kt, vt, causal=causal).transpose(1, 2)
             diff = (got.float() - ref.float()).abs()
@@ -1047,7 +1109,6 @@ def main() -> int:
             rel = diff / (1 + ref.float().abs())
             worst, mean = rel.max().item(), rel.mean().item()
             same = torch.equal(got, attention(q, k, v, causal=causal))
-            what = f"B={B} S={S} H={H} Hkv={Hkv} D={D} causal={causal} {dname}"
             p_gap = ""
             if dtype == torch.bfloat16:
                 bp = softmax_bf16_p(qt, kt, vt, causal).transpose(1, 2).float()
@@ -1161,41 +1222,67 @@ def main() -> int:
         return (q, k, v, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 2 * 2 * B * H * S * S * D / 2, 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D))
 
-    # Whisper's decoder self-attention in the objective: a second reading
+    # Whisper's decoder self-attention in the objective: a second reading.
+    # Both flash readings time the mma.sync yardstick beside the kernel, in
+    # turns (yardstick, kernel, kernel, yardstick), and print achieved
+    # TFLOP/s on the causal work and on the tensor cores' (P as hi + lo:
+    # 1.5x, the P V half done twice)
+    def flash_pair(q, k, v):
+        yard = torch.empty_like(q)
+        fn = lambda: attention(q, k, v, causal=True)  # noqa: E731
+        yd = lambda: flash_kernel.flash_attention_mma(q, k, v, yard, True)  # noqa: E731
+        y1, k1, k2, y2 = graph_ms(torch, yd), graph_ms(torch, fn), graph_ms(torch, fn), graph_ms(torch, yd)
+        return min(k1, k2), min(y1, y2), (y1, k1, k2, y2)
+
     q, k, v, qt, kt, vt, wf_flops, wf_bytes = flash_operands(*WHISPER_FLASH)
-    wf = dict(ms=graph_ms(torch, lambda: attention(q, k, v, causal=True)),
-              plain_ms=graph_ms(torch, lambda: attention_ref(qt, kt, vt, causal=True)),
+    wf = dict(plain_ms=graph_ms(torch, lambda: attention_ref(qt, kt, vt, causal=True)),
               library_ms=graph_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                   qt, kt, vt, is_causal=True)))
+    wf["ms"], wf["yard_ms"], wf_turns = flash_pair(q, k, v)
     wf_bound = bound_ms(wf_bytes, wf_flops, PEAK_BF16_FLOP_PER_S)
     print(f"time flash_attention B={WHISPER_FLASH[0]} S={WHISPER_FLASH[1]} "
           f"H={WHISPER_FLASH[2]} Hkv={WHISPER_FLASH[3]} D={WHISPER_FLASH[4]} causal "
           f"bf16 (whisper's decoder; CUDA graph, L2-warm): kernel_ms={wf['ms']:.5f} "
+          f"yardstick_ms(mma.sync)={wf['yard_ms']:.5f} (turns y/k/k/y "
+          f"{'/'.join(f'{x:.5f}' for x in wf_turns)}; kernel/yardstick "
+          f"{wf['ms'] / wf['yard_ms']:.3f}, bar < 1) "
           f"plain_ms={wf['plain_ms']:.5f} library_ms(sdpa)={wf['library_ms']:.5f} "
           f"bound_ms={wf_bound[0]:.5f} ({wf_bound[1]}: {wf_bytes / 1e6:.1f} MB, "
-          f"{wf_flops / 1e9:.2f} GFLOP) achieved_tflops={wf_flops / wf['ms'] / 1e9:.2f}",
-          flush=True)
+          f"{wf_flops / 1e9:.2f} GFLOP) achieved_tflops={wf_flops / wf['ms'] / 1e9:.2f} "
+          f"(hi + lo {1.5 * wf_flops / wf['ms'] / 1e9:.2f}; yardstick "
+          f"{wf_flops / wf['yard_ms'] / 1e9:.2f}) | {smi}", flush=True)
+    if not wf["ms"] < wf["yard_ms"]:
+        fail(f"flash_attention at Whisper's shape: {wf['ms']:.5f} ms, not faster than "
+             f"the mma.sync yardstick's {wf['yard_ms']:.5f}")
     B, S, H, Hkv, D, _ = FLASH_SHAPES[-1]
     q, k, v, qt, kt, vt, fa_flops, fa_bytes = flash_operands(B, S, H, Hkv, D)
     k_fa = kernels["flash_attention"]
-    k_fa["ms"] = graph_ms(torch, lambda: attention(q, k, v, causal=True))
+    k_fa["ms"], k_fa["yard_ms"], fa_turns = flash_pair(q, k, v)
     k_fa["plain_ms"] = graph_ms(torch, lambda: attention_ref(qt, kt, vt, causal=True))
     k_fa["library_ms"] = graph_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
     k_fa["bound_ms"], k_fa["bound_by"] = bound_ms(fa_bytes, fa_flops, PEAK_BF16_FLOP_PER_S)
     k_fa["eager_call_ms"] = eager_ms(torch, lambda: attention(q, k, v, causal=True), calls=20)
     print(f"time flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} causal bf16 "
-          f"(CUDA graph, L2-warm): kernel_ms={k_fa['ms']:.5f} plain_ms="
-          f"{k_fa['plain_ms']:.5f} library_ms(sdpa)={k_fa['library_ms']:.5f} "
+          f"(CUDA graph, L2-warm): kernel_ms={k_fa['ms']:.5f} yardstick_ms(mma.sync)="
+          f"{k_fa['yard_ms']:.5f} (turns y/k/k/y {'/'.join(f'{x:.5f}' for x in fa_turns)}; "
+          f"kernel/yardstick {k_fa['ms'] / k_fa['yard_ms']:.3f}, bar <= {FLASH_LM_SHARE}) "
+          f"plain_ms={k_fa['plain_ms']:.5f} library_ms(sdpa)={k_fa['library_ms']:.5f} "
           f"bound_ms={k_fa['bound_ms']:.5f} ({k_fa['bound_by']}: {fa_bytes / 1e6:.1f} MB, "
           f"{fa_flops / 1e9:.2f} GFLOP; bf16 tensor-core floor "
-          f"{fa_flops / PEAK_BF16_FLOP_PER_S * 1e3:.5f} ms, f32-FMA floor "
+          f"{fa_flops / PEAK_BF16_FLOP_PER_S * 1e3:.5f} ms, hi + lo "
+          f"{1.5 * fa_flops / PEAK_BF16_FLOP_PER_S * 1e3:.5f} ms, f32-FMA floor "
           f"{fa_flops / PEAK_F32_FLOP_PER_S * 1e3:.5f} ms) "
-          f"achieved_tflops={fa_flops / k_fa['ms'] / 1e9:.2f} "
+          f"achieved_tflops={fa_flops / k_fa['ms'] / 1e9:.2f} (hi + lo "
+          f"{1.5 * fa_flops / k_fa['ms'] / 1e9:.2f}; yardstick "
+          f"{fa_flops / k_fa['yard_ms'] / 1e9:.2f}) "
           f"eager_call_ms={k_fa['eager_call_ms']:.5f}; against the f32-P plain "
           f"version mean|err|/(1+|plain|)={flash_p['mean']:.3e} "
           f"max={flash_p['max']:.3e}, bf16-P gap mean={flash_p['gap_mean']:.3e} "
-          f"max={flash_p['gap_max']:.3e}", flush=True)
+          f"max={flash_p['gap_max']:.3e} | {smi}", flush=True)
+    if not k_fa["ms"] <= FLASH_LM_SHARE * k_fa["yard_ms"]:
+        fail(f"flash_attention at the LM's shape: {k_fa['ms']:.5f} ms, over "
+             f"{FLASH_LM_SHARE} x the mma.sync yardstick's {k_fa['yard_ms']:.5f}")
     q, k, v = q.float(), k.float(), v.float()  # the f32 instance, on FMAs
     f32_ms = graph_ms(torch, lambda: attention(q, k, v, causal=True), calls=10, replays=5)
     f32_bound = bound_ms(2 * fa_bytes, fa_flops)  # f32 FMAs

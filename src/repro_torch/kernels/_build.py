@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+NVCC_SECONDS: Dict[str, float] = {}  # each source's nvcc wall time, this process
 
 
 def sources() -> List[str]:
@@ -67,11 +68,23 @@ def _compile(names: Sequence[str]) -> None:
     for name in todo:
         tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
+        procs.append((name, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    outs: Dict[str, str] = {}
+
+    def finish(name, t0, proc):  # in a thread each: a source's own wall time
+        outs[name] = proc.communicate()[0]
+        NVCC_SECONDS[name] = time.perf_counter() - t0
+
+    waits = [threading.Thread(target=finish, args=(name, t0, proc))
+             for name, _, t0, proc in procs]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
     failed = []
-    for name, tmp, proc in procs:
-        out, _ = proc.communicate()
+    for name, tmp, _, proc in procs:
+        out = outs[name]
         (BUILD_DIR / f"{name}.log").write_text(out)
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{out}")

@@ -5,8 +5,11 @@ dtype (f32 or bf16) and device; the output is (B, Sq, H, D) in q's dtype.
 On the CPU this is `attention_ref` (on the transposed operands); on the
 card, ``csrc/flash_attention.cu``, which reads the (B, S, H, D) layout
 through strides and masks ragged tails, so nothing is padded or
-transposed: bf16 on the tensor cores (its operands 16-byte aligned), f32
-on FMAs.
+transposed: bf16 on the wgmma instance (TMA loads, so its operands are
+16-byte aligned with strides in multiples of 8 elements), f32 on FMAs.
+The mma.sync instance that the wgmma one replaced stays reachable only
+through ``kernel.flash_attention_mma``, as the yardstick that chip_smoke.py
+and the cuda-marked tests hold it against.
 """
 
 from __future__ import annotations

@@ -13,8 +13,9 @@ contracts).  The flash kernel against its plain version at the reference
 sweep's tolerances, 2e-5 (f32) and 3e-2 (bf16), elementwise as
 ``assert_close`` counts them, and the bf16 kernel's mean |err|/(1+|ref|)
 against the f32-P plain version below a quarter of the same mean for P
-rounded to bf16; the LM objective on the card against the CPU
-at the reference's model bar (loss 5e-3, gradient 5e-2 relative).
+rounded to bf16; the wgmma instance bitwise the mma.sync instance kept as
+its yardstick; the LM objective on the card against the CPU at the
+reference's model bar (loss 5e-3, gradient 5e-2 relative).
 """
 
 import math
@@ -32,6 +33,7 @@ from repro_torch.kernels.dequant_update.ref import (dequant_ref,
                                                     dequant_sub_ref,
                                                     dequant_update_ref)
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_update.ops import update
@@ -216,13 +218,19 @@ def test_streamed_kernel_replay_on_card_matches_cpu(cuda, codec):
 
 # the reference's flash sweep (tests/test_kernels.py), the edges of the
 # kernel's 64-row tiles (S = 1, 65, 127; causal S = 512 at G = 1 and 8;
-# non-causal S = 256) and the LM's shape
+# non-causal S = 256), the LM's shape cut to B 4, and chip_smoke.py's MoE
+# (MHA, 16 heads of 128: prefill_fn of qwen2-moe and moonshot, the
+# objective) and Whisper (20 heads of 64, S 448: the objective, prefill_fn)
+# shapes
 FLASH_SHAPES = [(2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
                 (2, 100, 4, 1, 64, True), (1, 128, 2, 2, 128, False),
                 (1, 64, 4, 4, 16, True), (3, 1, 4, 2, 64, True),
                 (2, 65, 8, 2, 128, True), (1, 127, 4, 4, 32, False),
                 (1, 512, 4, 4, 64, True), (2, 512, 8, 1, 128, True),
-                (2, 256, 4, 2, 64, False), (4, 512, 16, 8, 128, True)]
+                (2, 256, 4, 2, 64, False), (4, 512, 16, 8, 128, True),
+                (16, 128, 16, 16, 128, True), (4, 32, 16, 16, 128, True),
+                (32, 512, 16, 16, 128, True), (32, 448, 20, 20, 64, True),
+                (16, 128, 20, 20, 64, True)]
 FLASH_TOL = {"f32": 2e-5, "bf16": 3e-2}
 
 
@@ -293,6 +301,52 @@ def test_flash_bf16_keeps_p_in_f32_on_card(cuda, B, S, H, Hkv, D, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal", FLASH_SHAPES)
+def test_flash_wgmma_is_bitwise_the_mma_sync_yardstick_on_card(cuda, B, S, H, Hkv,
+                                                                 D, causal):
+    """The wgmma instance (every bf16 call) against the mma.sync instance
+    kept as its yardstick: one wgmma sums as the matching mma.sync calls
+    do, bit for bit (PERF.md section 6, the probe), and the two kernels
+    do the same arithmetic operation for operation, so their outputs are
+    bitwise equal."""
+    g = torch.Generator(device="cpu").manual_seed(B * 1000 + S + D + 11)
+    q = torch.randn(B, S, H, D, generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    yard = torch.empty_like(q)
+    flash_kernel.flash_attention_mma(q, k, v, yard, causal)
+    out = attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, yard), (out.float() - yard.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_launches_only_the_wgmma_instance(cuda, monkeypatch):
+    """ops.attention on a CUDA tensor counts one launch a call and reaches
+    flash_attention_fwd (the wgmma instance for bf16), never the yardstick;
+    the profiler names the kernel that ran."""
+    called = []
+    monkeypatch.setattr(flash_kernel, "flash_attention_mma",
+                        lambda *a, **k: called.append("mma"))
+    real = flash_kernel.flash_attention
+    monkeypatch.setattr(flash_kernel, "flash_attention",
+                        lambda *a, **k: (called.append("fwd"), real(*a, **k)))
+    q = torch.randn(2, 200, 8, 128, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(2, 200, 4, 128, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    attention(q, k, v, causal=True)  # built and warm before the profile
+    before = attention.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    assert called == ["fwd", "fwd"]
+    names = [e.name for e in prof.events() if "flash_fwd" in e.name]
+    assert names and all("flash_fwd_bf16_wgmma" in n for n in names), names
+
+
+@pytest.mark.cuda
 def test_flash_wrapper_raises_instead_of_falling_back(cuda):
     kv = torch.randn(1, 64, 2, 16, device=cuda)
     before = attention.launches
@@ -314,6 +368,16 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda):
                       dtype=torch.bfloat16)[1:].view(1, 64, 4, 16)
     with pytest.raises(ValueError, match="16-byte aligned"):
         attention(off, kvb, kvb)
+    # contiguous as torch counts it (a size-1 dim's stride is free), but a
+    # head stride of 3 elements: TMA's tensor map takes only strides that
+    # are multiples of 16 bytes, as the mma.sync instance's 16-byte copies
+    # did; the launch is refused and nothing falls back
+    q1 = torch.zeros(64 * 16 + 8, device=cuda, dtype=torch.bfloat16).as_strided(
+        (1, 64, 1, 16), (1024, 16, 3, 1))
+    k1 = torch.zeros(1, 64, 1, 16, device=cuda, dtype=torch.bfloat16)
+    assert q1.is_contiguous()
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        attention(q1, k1, k1)
     assert attention.launches == before
 
 
